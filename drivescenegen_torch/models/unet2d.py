@@ -1,0 +1,349 @@
+"""UNet2D denoiser in PyTorch (port of drivescenegen_tpu/models/unet2d.py).
+
+conv_in -> down blocks (ResnetBlocks + stride-2 conv downsample) -> mid
+block (ResnetBlock, self-attention, ResnetBlock) -> up blocks (ResnetBlocks
+over the skip concat + nearest x2 upsample) -> GroupNorm/SiLU/conv_out,
+with a sinusoidal time embedding and 2-layer MLP feeding every ResnetBlock.
+
+Layout and numerics follow the JAX module so the two agree on the same
+weights (models/convert.py maps the parameter trees):
+- public tensors are NHWC: forward(x[B,H,W,C], t) -> eps[B,H,W,C] in f32;
+- activations in cfg.dtype (bf16) over f32 params, cast at use;
+- GroupNorm eps 1e-6 everywhere, the attention block's norm included;
+- XLA "SAME" padding: a stride-2 3x3 conv pads (0, 1), or (1, 1) under
+  torch_pad_downsample;
+- attention logits and softmax in f32.
+
+Module names match the flax tree (down_{i}_res_{j}, mid_attn,
+up_{i}_upsample, ...). On a CUDA tensor every GN+SiLU+conv3x3 pair of a
+ResnetBlock, norm_out and the mid-block attention run the hand-written
+kernels (drivescenegen_torch/ops); on a CPU tensor, their plain versions.
+`plain=True` runs the plain versions on any device — the comparison for
+the kernels on the card, never the sampling path.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from drivescenegen_torch import ops
+from drivescenegen_torch.config import ModelConfig
+from drivescenegen_torch.utils.device import resolve_device
+
+GN_EPS = 1e-6
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0):
+    """Sinusoidal embedding [cos, sin] (diffusers flip_sin_to_cos=True,
+    downscale_freq_shift=0)."""
+    t = timesteps.reshape(-1).float()
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half
+    args = t[:, None] * torch.exp(exponent)[None, :]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def _param(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
+
+
+class _Params(nn.Module):
+    """f32 parameters, cast to the activation dtype at use as flax's
+    promote_dtype does. The cast copy (conv weights channels-last, the
+    layout cuDNN and the fused conv kernel read) is kept until the parameter
+    changes: sampling is inference only, and re-casting 56 M weights on
+    every forward would cost more than several kernels."""
+
+    def cast(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        p = getattr(self, name)
+        key = (p._version, p.data_ptr(), dtype)
+        casts = self.__dict__.setdefault("_casts", {})
+        hit = casts.get(name)
+        if hit is None or hit[0] != key:
+            fmt = torch.channels_last if p.dim() == 4 else torch.contiguous_format
+            hit = (key, p.detach().to(dtype=dtype, memory_format=fmt))
+            casts[name] = hit
+        return hit[1]
+
+
+class Conv2d(_Params):
+    """Parameters of a conv: weight [O, I, k, k] (OIHW), bias [O]."""
+
+    def __init__(self, cin: int, cout: int, k: int, device=None):
+        super().__init__()
+        self.weight = _param((cout, cin, k, k), device)
+        self.bias = _param((cout,), device)
+
+
+class Dense(_Params):
+    """Parameters of a dense layer: weight [O, I], bias [O]."""
+
+    def __init__(self, cin: int, cout: int, device=None):
+        super().__init__()
+        self.weight = _param((cout, cin), device)
+        self.bias = _param((cout,), device)
+
+    def forward(self, x):
+        return F.linear(x, self.cast("weight", x.dtype), self.cast("bias", x.dtype))
+
+
+class Norm(nn.Module):
+    """Parameters of a GroupNorm: weight (flax `scale`) and bias, [C]."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.weight = _param((channels,), device)
+        self.bias = _param((channels,), device)
+
+
+def conv_nhwc(x, weight, bias, stride: int = 1, pad=None):
+    """Conv over NHWC x, with weight and bias already in x's dtype. `pad` is
+    (left, right, top, bottom); None means SAME at stride 1."""
+    xc = x.permute(0, 3, 1, 2)
+    k = weight.shape[-1]
+    if pad is None:
+        padding = k // 2
+    else:
+        xc = F.pad(xc, pad)
+        padding = 0
+    y = F.conv2d(xc, weight, bias, stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_module(x, conv: Conv2d, stride: int = 1, pad=None):
+    return conv_nhwc(x, conv.cast("weight", x.dtype), conv.cast("bias", x.dtype), stride, pad)
+
+
+def _same_pad(n: int, k: int = 3, s: int = 2):
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class TimeMLP(nn.Module):
+    def __init__(self, cin: int, embed_dim: int, device=None):
+        super().__init__()
+        self.dense1 = Dense(cin, embed_dim, device)
+        self.dense2 = Dense(embed_dim, embed_dim, device)
+
+    def forward(self, t_emb):
+        return self.dense2(F.silu(self.dense1(t_emb)))
+
+
+class ResnetBlock(nn.Module):
+    """GroupNorm -> SiLU -> conv -> (+time) -> GroupNorm -> SiLU -> conv, with
+    a 1x1 shortcut when the channel count changes. Pair mode (`skip` given)
+    takes what would be concat(x, skip) without building it: the GroupNorm
+    statistics fold jointly across the boundary, and conv1/shortcut split
+    their kernels along the input channels."""
+
+    def __init__(self, cin: int, cout: int, temb_dim: int, groups: int, plain: bool, device=None):
+        super().__init__()
+        self.groups, self.plain = groups, plain
+        self.norm1 = Norm(cin, device)
+        self.conv1 = Conv2d(cin, cout, 3, device)
+        self.time_proj = Dense(temb_dim, cout, device)
+        self.norm2 = Norm(cout, device)
+        self.conv2 = Conv2d(cout, cout, 3, device)
+        if cin != cout:
+            self.shortcut = Conv2d(cin, cout, 1, device)
+
+    def _gn_conv(self, x, norm: Norm, conv: Conv2d):
+        fn = ops.reference_gn_silu_conv3x3 if self.plain else ops.gn_silu_conv3x3
+        return fn(x.contiguous(), norm.weight, norm.bias, conv.cast("weight", x.dtype),
+                  conv.bias, self.groups, GN_EPS)
+
+    def forward(self, x, temb, skip: Optional[torch.Tensor] = None):
+        if skip is None:
+            h = self._gn_conv(x, self.norm1, self.conv1)
+        else:
+            ca = x.shape[-1]
+            ha, hb = ops.reference_group_norm_silu_multi(
+                (x, skip), self.norm1.weight, self.norm1.bias, self.groups, GN_EPS)
+            w = self.conv1.cast("weight", x.dtype)
+            h = (conv_nhwc(ha, w[:, :ca], None) + conv_nhwc(hb, w[:, ca:], None)
+                 + self.conv1.cast("bias", x.dtype))
+        h = h + self.time_proj(F.silu(temb))[:, None, None, :]
+        h = self._gn_conv(h, self.norm2, self.conv2)
+        if hasattr(self, "shortcut"):
+            if skip is None:
+                x = conv_module(x, self.shortcut)
+            else:
+                ca = x.shape[-1]
+                w = self.shortcut.cast("weight", x.dtype)
+                x = (conv_nhwc(x, w[:, :ca], None) + conv_nhwc(skip, w[:, ca:], None)
+                     + self.shortcut.cast("bias", x.dtype))
+        return x + h
+
+
+class AttentionBlock(nn.Module):
+    """Spatial self-attention over H*W tokens with a fused qkv projection
+    and a residual add (diffusers Attention in UNetMidBlock2D)."""
+
+    def __init__(self, channels: int, head_dim: int, groups: int, plain: bool, device=None):
+        super().__init__()
+        self.groups, self.plain = groups, plain
+        self.num_heads = max(1, channels // head_dim)
+        self.norm = Norm(channels, device)
+        self.qkv = Dense(channels, 3 * channels, device)
+        self.proj_out = Dense(channels, channels, device)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        heads = self.num_heads
+        hd = C // heads
+        h = F.group_norm(x.permute(0, 3, 1, 2).float(), self.groups,
+                         self.norm.weight, self.norm.bias, eps=GN_EPS)
+        h = h.to(x.dtype).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        qkv = self.qkv(h)
+        q, k, v = (t.view(B, H * W, heads, hd).transpose(1, 2) for t in qkv.split(C, dim=-1))
+        fn = ops.reference_attention if self.plain else ops.attention
+        out = fn(q, k, v, 1.0 / math.sqrt(hd))
+        out = self.proj_out(out.transpose(1, 2).reshape(B, H * W, C))
+        return x + out.reshape(B, H, W, C)
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv. SAME pads (0, 1) on even inputs; torch_pad pads
+    (1, 1) as diffusers' Downsample2D does."""
+
+    def __init__(self, channels: int, torch_pad: bool, device=None):
+        super().__init__()
+        self.torch_pad = torch_pad
+        self.conv = Conv2d(channels, channels, 3, device)
+
+    def forward(self, x):
+        if self.torch_pad:
+            pad = (1, 1, 1, 1)
+        else:
+            pad = _same_pad(x.shape[2]) + _same_pad(x.shape[1])
+        return conv_module(x, self.conv, stride=2, pad=pad)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour x2, then a 3x3 conv."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, device)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
+        return conv_module(x, self.conv)
+
+
+class UNet2D(nn.Module):
+    """The denoiser. forward(x_noisy, t, cond=None) -> eps_hat.
+
+    x: [B, H, W, C_in] NHWC; t: [B] or scalar integer timesteps; cond:
+    optional [B, H, W, C_cond], concatenated to the input (zeros when None
+    and cfg.cond_channels > 0).
+
+    Weights are drawn at construction from `generator` (flax-like init:
+    lecun-normal kernels, zero biases, unit norm scales); pass a seeded
+    torch.Generator on `device`, or load a state dict afterwards.
+    """
+
+    def __init__(self, cfg: ModelConfig, device="cuda", plain: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        ch = tuple(cfg.block_out_channels)
+        groups = cfg.norm_num_groups
+        temb = ch[0] * 4
+        kw = dict(groups=groups, plain=plain, device=device)
+
+        self.time_mlp = TimeMLP(ch[0], temb, device)
+        self.conv_in = Conv2d(cfg.in_channels + cfg.cond_channels, ch[0], 3, device)
+        skip_ch = [ch[0]]
+        cin = ch[0]
+        for i, c in enumerate(ch):
+            for j in range(cfg.layers_per_block):
+                self.add_module(f"down_{i}_res_{j}", ResnetBlock(cin, c, temb, **kw))
+                cin = c
+                skip_ch.append(c)
+            if i != len(ch) - 1:
+                self.add_module(f"down_{i}_downsample",
+                                Downsample(c, cfg.torch_pad_downsample, device))
+                skip_ch.append(c)
+        self.mid_res_0 = ResnetBlock(cin, ch[-1], temb, **kw)
+        self.mid_attn = AttentionBlock(ch[-1], cfg.attention_head_dim, groups, plain, device)
+        self.mid_res_1 = ResnetBlock(ch[-1], ch[-1], temb, **kw)
+        for i, c in enumerate(reversed(ch)):
+            for j in range(cfg.layers_per_block + 1):
+                self.add_module(f"up_{i}_res_{j}",
+                                ResnetBlock(cin + skip_ch.pop(), c, temb, **kw))
+                cin = c
+            if i != len(ch) - 1:
+                self.add_module(f"up_{i}_upsample", Upsample(c, device))
+        self.norm_out = Norm(ch[0], device)
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, device)
+        self.plain = plain
+        if device.type != "meta":
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            self.init_weights(generator)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                fan_in = p[0].numel()
+                p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+    def forward(self, x, t, cond: Optional[torch.Tensor] = None):
+        cfg = self.cfg
+        dt = self.dtype
+        ch = tuple(cfg.block_out_channels)
+        n = len(ch)
+        B = x.shape[0]
+        t = torch.as_tensor(t, device=x.device).reshape(-1).expand(B)
+        temb = self.time_mlp(timestep_embedding(t, ch[0]).to(dt))
+
+        x = x.to(dt)
+        if cfg.cond_channels > 0:
+            if cond is None:
+                cond = torch.zeros(x.shape[:-1] + (cfg.cond_channels,), dtype=dt, device=x.device)
+            x = torch.cat([x, cond.to(dt)], dim=-1)
+
+        h = conv_module(x, self.conv_in)
+        skips = [h]
+        for i in range(n):
+            for j in range(cfg.layers_per_block):
+                h = getattr(self, f"down_{i}_res_{j}")(h, temb)
+                skips.append(h)
+            if i != n - 1:
+                h = getattr(self, f"down_{i}_downsample")(h)
+                skips.append(h)
+
+        h = self.mid_res_0(h, temb)
+        h = self.mid_attn(h)
+        h = self.mid_res_1(h, temb)
+
+        for i in range(n):
+            for j in range(cfg.layers_per_block + 1):
+                skip = skips.pop()
+                block = getattr(self, f"up_{i}_res_{j}")
+                if cfg.split_skip_conv:
+                    h = block(h, temb, skip=skip)
+                else:
+                    h = block(torch.cat([h, skip], dim=-1), temb)
+            if i != n - 1:
+                h = getattr(self, f"up_{i}_upsample")(h)
+
+        gn = ops.reference_group_norm_silu if self.plain else ops.group_norm_silu
+        h = gn(h.contiguous(), self.norm_out.weight, self.norm_out.bias, cfg.norm_num_groups, GN_EPS)
+        h = conv_module(h, self.conv_out)
+        return h.float()

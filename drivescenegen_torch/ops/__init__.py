@@ -1,0 +1,32 @@
+"""Kernel wrappers. Each runs its plain PyTorch version on a CPU tensor and
+its hand-written Hopper kernel on a CUDA tensor, counting launches in
+`<wrapper>.launches`."""
+
+from drivescenegen_torch.ops.attention import attention, reference_attention  # noqa: F401
+from drivescenegen_torch.ops.gn_silu_conv import (  # noqa: F401
+    gn_silu_conv3x3,
+    reference_gn_silu_conv3x3,
+    reference_silu_conv3x3,
+    silu_conv3x3,
+)
+from drivescenegen_torch.ops.group_norm import (  # noqa: F401
+    gn_mul_add,
+    group_norm_silu,
+    reference_gn_mul_add,
+    reference_group_norm_silu,
+    reference_group_norm_silu_multi,
+    reference_silu_affine,
+    silu_affine,
+)
+
+# Every kernel wrapper on the sampling path, for counting launches.
+KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
