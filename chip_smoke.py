@@ -5,20 +5,24 @@
 
 Phases, each printed as it runs; any failure exits non-zero:
   1. device    the card's name and power limit; TF32 off for the references
-  2. build     nvcc builds csrc/*.cu from the checkout (all at once)
+  2. build     nvcc builds csrc/*.cu from the checkout (all at once), with
+               ptxas's register/spill report; cuobjdump's SASS of each CUDA
+               library must hold wgmma (HGMMA) and TMA loads (UTMALDG)
   3. kernels   every kernel on the sampling path against its plain PyTorch
                version, at every shape the full-width UNet gives it
-               (batch 8, 256x256): error against a stated tolerance, kernel
-               time, plain time, library time where one PyTorch call
-               computes the same function, and the least time the card
-               could take (bytes at 3.35 TB/s or bf16 operations at
-               989 TFLOP/s, whichever is larger)
+               (batch 8, 256x256; models/unet2d.py conv3x3_shapes and
+               mid_attention_shape) and at ragged shapes: error against a
+               stated tolerance, kernel time, plain time, library time where
+               one PyTorch call computes the same function, and the least
+               time the card could take (bytes at 3.35 TB/s or bf16
+               operations at 989 TFLOP/s, whichever is larger)
   4. forward   the full-width UNet2D (default widths, seeded random weights)
                with kernels against the same model with plain versions
   5. sampling  DDIM-50, batch 8, 256x256, eta 0: the launch counts of one
                run, which show the path went through every kernel, then
                scenes/s as the median of three runs and the device's idle
-               share
+               share; then the host's cost of one call of each kernel
+               wrapper (enqueue only, at a tiny shape)
   6. cli       the generation CLI on a model directory written from the
                same weights (config.yaml + params.npz)
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,6 +52,8 @@ F32_TOL = 1e-4
 # The whole UNet forward, bf16 end to end: rounding differences of 44 conv
 # pairs compound; the bound tests/test_unet_fused_gn_conv.py uses.
 FORWARD_TOL = 0.05
+# Instructions the SASS of each CUDA library must contain: wgmma and TMA.
+SASS_MUST_HAVE = ("HGMMA", "UTMALDG")
 
 
 class SmokeFailure(Exception):
@@ -107,39 +114,32 @@ def time_ms(fn, min_total_ms: float = 30.0, graph: bool = True) -> float:
     return start.elapsed_time(stop) / n
 
 
+def host_us(fn, n: int = 2000) -> float:
+    """Host time per call of n back-to-back calls, without waiting for the
+    device: what the eager loop pays to enqueue the call."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def bound_ms(bytes_moved: float, flops: float):
     t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def conv_shapes(cfg) -> Counter:
-    """(H, C, Co) of every GN+SiLU+conv3x3 pair in one UNet forward, in the
-    order of models/unet2d.py: two per ResnetBlock."""
-    ch = tuple(cfg.block_out_channels)
-    shapes = Counter()
-    H, cin, skips = cfg.sample_size, ch[0], [ch[0]]
-
-    def resnet(c_in, c_out):
-        shapes[(H, c_in, c_out)] += 1
-        shapes[(H, c_out, c_out)] += 1
-
-    for i, c in enumerate(ch):
-        for _ in range(cfg.layers_per_block):
-            resnet(cin, c)
-            cin = c
-            skips.append(c)
-        if i != len(ch) - 1:
-            H //= 2
-            skips.append(c)
-    resnet(cin, ch[-1])
-    resnet(ch[-1], ch[-1])
-    for i, c in enumerate(reversed(ch)):
-        for _ in range(cfg.layers_per_block + 1):
-            resnet(cin + skips.pop(), c)
-            cin = c
-        if i != len(ch) - 1:
-            H *= 2
-    return shapes
+def sass_of(lib_path) -> str:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True)
+    check(out.returncode == 0, f"cuobjdump -sass {lib_path}: {out.stderr.strip()[-500:]}")
+    return out.stdout
 
 
 def profile_forward(model, x, t, n: int = 3, top: int = 12) -> None:
@@ -214,6 +214,7 @@ def main() -> int:
         from drivescenegen_torch.config import Config, ModelConfig, save_config
         from drivescenegen_torch.diffusion import ddim_sample, make_schedule
         from drivescenegen_torch.models import UNet2D
+        from drivescenegen_torch.models.unet2d import conv3x3_shapes, mid_attention_shape
         from drivescenegen_torch.models.convert import save_npz, torch_to_flax
         from drivescenegen_torch.ops import build
         from drivescenegen_torch.scripts import generation
@@ -249,14 +250,19 @@ def main() -> int:
             print(f"{name}: already built at {lib.name}")
             continue
         usage = [ln.split("info    : ")[-1] for ln in info["ptxas"].splitlines() if "Used" in ln
-                 or "spill" in ln]
+                 or "spill" in ln or "Performance Loss" in ln]
         print(f"{name}: built in {info['seconds']:.1f}s; " + "; ".join(usage))
     print(f"build: {time.perf_counter() - t0:.1f}s")
+    for name in build.SOURCES:
+        sass = sass_of(build.library_path(name))
+        found = {op: sass.count(op) for op in SASS_MUST_HAVE}
+        print(f"{name}: SASS " + ", ".join(f"{op} x{n}" for op, n in found.items()))
+        check(all(found.values()), f"{name}: SASS lacks {[op for op, n in found.items() if not n]}")
 
     # ---------------------------------------------------------------- 3
     phase("3 kernels against their plain versions")
     cfg = ModelConfig(use_pallas_gn=True, use_pallas_gn_conv=True, attention_impl="flash")
-    shapes = conv_shapes(cfg)
+    shapes = conv3x3_shapes(cfg)
     check(sum(shapes.values()) == 44, f"expected 44 conv pairs per forward, got {sum(shapes.values())}")
     rows = {
         "silu_conv3x3": KernelRow("silu_conv3x3", "cuda", "drivescenegen_torch/csrc/gn_silu_conv.cu",
@@ -286,10 +292,13 @@ def main() -> int:
         C = x.shape[-1]
         ms = time_ms(lambda: ops.gn_mul_add(x, scale, bias, G, eps))
         plain = time_ms(lambda: ops.reference_gn_mul_add(x, scale, bias, G, eps))
+        # Library yardstick: the same per-(batch, group) moments in one call.
+        xg = x.view(x.shape[0], -1, G, C // G)
+        lib = time_ms(lambda: torch.var_mean(xg, dim=(1, 3)))
         bnd = bound_ms(x.numel() * 2 + 2 * C * 4 + 2 * B * C * 4, 3 * x.numel())
-        rows["gn_mul_add"].add(count, err, ref_max, ms, plain, bnd)
+        rows["gn_mul_add"].add(count, err, ref_max, ms, plain, bnd, lib)
         print(f"  gn_mul_add  {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x{count}")
+              f"{plain:.4f} ms, var_mean {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x{count}")
         return rm, ra
 
     for (H, C, Co), count in sorted(shapes.items()):
@@ -321,6 +330,25 @@ def main() -> int:
               f" cuDNN conv {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x{count}")
         del x, w, t, got, ref
 
+    # Ragged shapes, checked and not timed: H and W not multiples of the
+    # 8x16 tile, both output-channel tiles (64 and 128), and an add of 0.5
+    # so that silu(add) != 0 would show in the border if the kernel padded
+    # before the activation.
+    for Bq, H, W, C, Co in ((2, 20, 36, 128, 64), (1, 12, 20, 64, 128)):
+        label = f"[{Bq},{H},{W},{C}]->{Co}"
+        x = randn(Bq, H, W, C).bfloat16()
+        mul, add = 1.0 + randn(Bq, C, std=0.2), 0.5 + randn(Bq, C, std=0.1)
+        w = randn(Co, C, 3, 3, std=1.0 / math.sqrt(9 * C)).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        cb = randn(Co, std=0.1)
+        got = ops.silu_conv3x3(x, mul, add, w, cb)
+        ref = ops.reference_silu_conv3x3(x, mul, add, w, cb)
+        err, ref_max = err_of(got, ref)
+        check(err <= BF16_TOL * ref_max, f"silu_conv3x3 {label}: err {err} vs max {ref_max}")
+        print(f"silu_conv3x3  {label} (ragged): err {err:.3g} (max {ref_max:.3g}, tol "
+              f"{BF16_TOL * ref_max:.3g})")
+        del x, w, got, ref
+
     # norm_out: GroupNorm+SiLU at the full resolution.
     C0, S0 = cfg.block_out_channels[0], cfg.sample_size
     x = randn(B, S0, S0, C0).bfloat16()
@@ -338,9 +366,8 @@ def main() -> int:
           f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
 
     # Mid-block attention: q, k, v as strided views of the fused qkv output.
-    Cm = cfg.block_out_channels[-1]
-    heads, hd = Cm // cfg.attention_head_dim, cfg.attention_head_dim
-    S = (cfg.sample_size >> (len(cfg.block_out_channels) - 1)) ** 2
+    heads, S, hd = mid_attention_shape(cfg)
+    Cm = heads * hd
     qkv = randn(B, S, 3 * Cm).bfloat16()
     q, k, v = (tt.view(B, S, heads, hd).transpose(1, 2) for tt in qkv.split(Cm, dim=-1))
     sc = 1.0 / math.sqrt(hd)
@@ -351,11 +378,29 @@ def main() -> int:
     ms = time_ms(lambda: ops.attention(q, k, v, sc))
     plain = time_ms(lambda: ops.reference_attention(q, k, v, sc))
     lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
-    bnd = bound_ms(4 * B * heads * S * hd * 2, 4 * B * heads * S * S * hd)
+    flops = 4 * B * heads * S * S * hd
+    bnd = bound_ms(4 * B * heads * S * hd * 2, flops)
     rows["attention"].add(1, err, ref_max, ms, plain, bnd, lib)
-    print(f"attention     {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
+    print(f"attention     {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+          f"({flops / lib / 1e9:.1f} TFLOP/s), bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
     del x, qkv, q, k, v, got, ref
+    # Ragged attention, checked and not timed: S = 256 from a fused qkv
+    # projection (strided views), and S = 384 (an odd number of 128-key
+    # tiles) sliced from [B, heads, S, 2D] buffers, whose head stride is
+    # larger than its token stride.
+    qkv = randn(2, 256, 3 * Cm).bfloat16()
+    views = [(t.view(2, 256, heads, hd).transpose(1, 2) for t in qkv.split(Cm, dim=-1))]
+    wide = [randn(2, heads, 384, 2 * hd).bfloat16() for _ in range(3)]
+    views.append(t[..., hd:] for t in wide)
+    for q, k, v in views:
+        check(not q.is_contiguous(), "ragged attention case should be a strided view")
+        got, ref = ops.attention(q, k, v, sc), ops.reference_attention(q, k, v, sc)
+        err, ref_max = err_of(got, ref)
+        label = f"[{q.shape[0]},{heads},{q.shape[2]},{hd}] strides {tuple(q.stride())}"
+        check(err <= BF16_TOL * ref_max, f"attention {label}: err {err} vs max {ref_max}")
+        print(f"attention     {label} (ragged): err {err:.3g} (max {ref_max:.3g})")
+    del qkv, wide, views, q, k, v, got, ref
 
     # ---------------------------------------------------------------- 4
     phase("4 full-width UNet2D forward, kernels against plain versions")
@@ -425,6 +470,22 @@ def main() -> int:
     for name, row in rows.items():
         row.d["launches"] = counts[name]
 
+    # Host cost per wrapper call at a tiny shape (the device work is
+    # negligible), beside one PyTorch op of each kind for scale.
+    xs = randn(1, 8, 16, 64).bfloat16()
+    ones, zeros = torch.ones(1, 64, device=dev), torch.zeros(1, 64, device=dev)
+    ws = randn(64, 64, 3, 3).to(torch.bfloat16, memory_format=torch.channels_last)
+    qs = randn(1, 1, 128, 64).bfloat16()
+    c64 = torch.ones(64, device=dev)
+    host = {
+        "silu_conv3x3": host_us(lambda: ops.silu_conv3x3(xs, ones, zeros, ws, c64)),
+        "gn_mul_add": host_us(lambda: ops.gn_mul_add(xs, c64, c64, G, eps)),
+        "attention": host_us(lambda: ops.attention(qs, qs, qs, 0.125)),
+        "F.conv2d": host_us(lambda: F.conv2d(xs.permute(0, 3, 1, 2), ws, None, padding=1)),
+        "bf16 add": host_us(lambda: xs + xs),
+    }
+    print("host us per call: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+
     # ---------------------------------------------------------------- 6
     phase("6 generation CLI")
     with tempfile.TemporaryDirectory() as tmp:
@@ -443,7 +504,7 @@ def main() -> int:
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
-                                  "ddim_seconds_runs": times,
+                                  "ddim_seconds_runs": times, "host_us_per_call": host,
                                   "batch": B, "steps": STEPS, "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
     print(smi)

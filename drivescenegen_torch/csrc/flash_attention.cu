@@ -1,214 +1,359 @@
 // Flash-attention forward for Hopper (sm_90a): non-causal
-// softmax(Q K^T * scale) V over bf16 [B, heads, S, 64], f32 softmax and
-// accumulation, bf16 output.
+// softmax(Q K^T * scale) V over bf16 [B, heads, S, 64], f32 logits and
+// softmax, P rounded to bf16 for the product with V, bf16 output.
 //
 // Replaces the mid-block attention of the JAX UNet with impl="flash"
 // (drivescenegen_tpu/models/unet2d.py:307-316), which calls JAX's library
 // Pallas kernel jax.experimental.pallas.ops.tpu.flash_attention.
 //
 // On the main path (S = 1024 tokens, head_dim 64, 8 heads, batch 8) the
-// work is 4*B*heads*S*S*D operations on 4*B*heads*S*D bf16 elements of
-// traffic: ~256 FLOP per byte, close to the H100's balance, so the tensor
-// cores and the exp/max/sum of the softmax are what bound it. The design
-// keeps every logit in registers (no [S, S] matrix in memory):
-//   - one block of 4 warps per (batch, head, 64-query tile); each warp owns
-//     16 query rows, with its Q fragments held in registers;
-//   - the block walks 64-key tiles of K and V through shared memory (V is
-//     stored transposed, so its mma.sync B fragments are 32-bit loads);
-//   - S = Q K^T and O += P V run as bf16 mma.sync m16n8k16 with f32
-//     accumulators; the S accumulators are reused directly as the P
-//     operand (the FlashAttention-2 register layout);
-//   - online softmax in f32 with exp2 (scale folded with log2 e); the row
-//     sum is normalized once at the end.
-// Strides are arguments, so Q, K and V can be views into the fused qkv
-// projection and O can be written straight into [B, S, heads*D].
+// work is 4*B*heads*S*S*D = 17.2 GFLOP on 4*B*heads*S*D bf16 elements of
+// traffic, ~256 FLOP per byte: the tensor cores and the softmax's
+// exp/max/sum bound it, not memory, and they have to overlap. The design
+// (FlashAttention-3's shape, without its fp8 and intra-warpgroup extras):
+//   - a persistent grid of one CTA per SM walks work items (query tile of
+//     BQ = 128, head, batch), each CTA with two consumer warpgroups of 64
+//     query rows and one producer warpgroup, whose single thread starts
+//     every load (setmaxnreg moves registers to the consumers);
+//   - Q is loaded by TMA into a 2-deep ring (the next item's Q loads under
+//     this item's tail); K and V tiles of BKV = 128 keys stream by TMA
+//     through a KV_STAGES-deep ring in shared memory, 128-byte swizzled (a
+//     64-wide bf16 row is one 128-byte line), each stage with its own
+//     K-full, V-full and empty mbarriers, so loads run ahead of the MMAs;
+//   - S = Q K^T is wgmma m64n128k16 with both operands in shared memory
+//     (K is K-major as stored);
+//   - O += P V is wgmma m64n64k16 with P from registers (the S
+//     accumulators repacked to bf16 are already the A-fragment layout) and
+//     V from shared memory in its natural [keys][d] layout, read through
+//     wgmma's transpose flag: no transpose pass;
+//   - per key tile j a warpgroup starts S_j and P_{j-1} V_{j-1} together,
+//     then runs S_j's online softmax (f32, exp2 with the scale folded in)
+//     while P_{j-1} V_{j-1} runs; the two warpgroups take turns starting
+//     their products (a named-barrier ping-pong), so one's softmax
+//     overlaps the other's products;
+//   - the row sum is normalized once at the end, and the epilogue writes
+//     bf16 straight into the [B, S, heads, D] output.
+// The ping-pong needs two consumer warpgroups, so BQ = 128; the registers
+// of 384 threads leave room for one CTA per SM (168 a thread at launch, 16
+// bytes of stack, no spills). BKV and KV_STAGES were chosen by timing the
+// alternatives on the card (PERF.md). Q, K and V may be
+// any strided views with a contiguous last dim and 16-byte multiple
+// strides (the fused qkv projection's views are); each launch encodes one
+// tensor map per operand.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
-#include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int D = 64;        // head dim
-constexpr int BQ = 64;       // queries per block
-constexpr int BKV = 64;      // keys per tile
-constexpr int LD = D + 8;    // shared row stride (bf16) for Q and K: 144 bytes
-constexpr int LDT = BKV + 8; // shared row stride (bf16) for V^T
-constexpr int THREADS = 128;
+using namespace hopper;
 
-__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// 2^x, flushing results below 2^-126 to 0: weights that small vanish in the
+// bf16 P and in the f32 row sums alike.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int D = 64;          // head dim: one 128-byte row
+constexpr int CONSUMERS = 2;   // consumer warpgroups (the ping-pong pair), 64 query rows each
+constexpr int BQ = 64 * CONSUMERS;
+constexpr int BKV = 128;       // keys per tile: 64 or 128
+constexpr int KV_STAGES = 4;   // K/V tiles in flight: enough to cover the TMA latency
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+// The entry point's shape limits, head dim D (above) and S a multiple of
+// S_MULTIPLE. ops/attention.py reads both lines (build.source_int), so
+// the wrapper checks these very values.
+constexpr int S_MULTIPLE = 128;
+static_assert(S_MULTIPLE % BQ == 0 && S_MULTIPLE % BKV == 0, "S_MULTIPLE must hold whole tiles");
+// Registers per thread after setmaxnreg, within what the launch gives one
+// CTA per SM (65536 / THREADS, rounded down to a multiple of 8).
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(128 * PRODUCER_REGS + 128 * CONSUMERS * CONSUMER_REGS <=
+                  THREADS * ((65536 / THREADS) & ~7),
+              "register split over the launch's budget");
+constexpr int Q_BYTES = BQ * D * 2;
+constexpr int KV_BYTES = BKV * D * 2;
+
+struct Smem {
+  __nv_bfloat16 q[2][BQ * D];
+  __nv_bfloat16 k[KV_STAGES][BKV * D];
+  __nv_bfloat16 v[KV_STAGES][BKV * D];
+  uint64_t q_full[2], q_empty[2];
+  uint64_t k_full[KV_STAGES];
+  uint64_t v_full[KV_STAGES];
+  uint64_t empty[KV_STAGES];
+};
+constexpr int SMEM_BYTES = sizeof(Smem) + 1024;  // + alignment of the base to 1024
+
+// S = Q K^T for one key tile into s: started and committed, not waited for.
+__device__ __forceinline__ void start_s(float (&s)[BKV / 2], uint32_t q_addr, uint32_t k_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    wgmma_ss<BKV, 0>(s, desc_sw128(q_addr + kc * 32), desc_sw128(k_addr + kc * 32), kc > 0);
+  }
+  wgmma_commit();
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  uint32_t u;
-  memcpy(&u, &h, 4);
-  return u;
+// O += P V for one key tile, P from registers, V [keys][d] in shared
+// memory through the transpose flag: started and committed, not waited for.
+__device__ __forceinline__ void start_pv(float (&acc)[32], uint32_t (&p)[BKV / 16][4],
+                                         uint32_t v_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int kc = 0; kc < BKV / 16; ++kc) {
+    wgmma_m64n64k16_rs<1>(acc, p[kc], desc_sw128(v_addr + kc * 16 * 128), 1);
+  }
+  wgmma_commit();
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                       long long qsb, long long qsh, long long qss,
-                       long long ksb, long long ksh, long long kss,
-                       long long vsb, long long vsh, long long vss,
-                       long long osb, long long osh, long long oss, float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[BQ * LD];
-  __shared__ __align__(16) __nv_bfloat16 Ks[BKV * LD];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D * LDT];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = q + b * qsb + h * qsh;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
-  __nv_bfloat16* ob = o + b * osb + h * osh;
-
-  // Q tile: 64 rows x 8 chunks of 8, 4 chunks per thread.
+// Online softmax of one S tile in place (exp2 of the scaled logits minus
+// the new running max); returns the factor the old O and row sums take.
+__device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], float (&m_run)[2],
+                                             float (&l_run)[2], float scale_log2,
+                                             float (&alpha)[2]) {
+  // s[4n + {0,1}]: row g, keys 8n + 2tq + {0,1}; s[4n + {2,3}]: row g + 8.
+  float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int id = tid + i * THREADS;
-    const int r = id >> 3, part = id & 7;
-    *reinterpret_cast<uint4*>(&Qs[r * LD + part * 8]) =
-        __ldg(reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * qss + part * 8));
+  for (int n = 0; n < BKV / 8; ++n) {
+    tmax[0] = fmaxf(tmax[0], fmaxf(s[4 * n], s[4 * n + 1]));
+    tmax[1] = fmaxf(tmax[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
   }
-  __syncthreads();
-  uint32_t qf[4][4];
+  float mnew[2];
 #pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const int r = warp * 16 + g;
-    qf[kc][0] = ld_u32(&Qs[r * LD + kc * 16 + 2 * tq]);
-    qf[kc][1] = ld_u32(&Qs[(r + 8) * LD + kc * 16 + 2 * tq]);
-    qf[kc][2] = ld_u32(&Qs[r * LD + kc * 16 + 8 + 2 * tq]);
-    qf[kc][3] = ld_u32(&Qs[(r + 8) * LD + kc * 16 + 8 + 2 * tq]);
+  for (int r = 0; r < 2; ++r) {
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+    tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+    mnew[r] = fmaxf(m_run[r], tmax[r] * scale_log2);
+    alpha[r] = exp2_ftz(m_run[r] - mnew[r]);
+    m_run[r] = mnew[r];
+    l_run[r] *= alpha[r];
   }
-
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max (log2 units), rows g and g+8
-  float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
-  float acc[8][4];
 #pragma unroll
-  for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[ni][r] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += BKV) {
-    __syncthreads();  // the previous tile is no longer read
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int id = tid + i * THREADS;
-      const int r = id >> 3, part = id & 7;
-      *reinterpret_cast<uint4*>(&Ks[r * LD + part * 8]) =
-          __ldg(reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * kss + part * 8));
-      // V: consecutive threads take consecutive keys, so the transposed
-      // 2-byte stores of a warp land in distinct banks.
-      const int vr = id & 63, vpart = id >> 6;
-      const uint4 raw =
-          __ldg(reinterpret_cast<const uint4*>(vb + (long long)(k0 + vr) * vss + vpart * 8));
-      __nv_bfloat16 e[8];
-      memcpy(e, &raw, 16);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(vpart * 8 + j) * LDT + vr] = e[j];
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) s[ni][r] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int n = ni * 8 + g;
-        const uint32_t bf[2] = {ld_u32(&Ks[n * LD + kc * 16 + 2 * tq]),
-                                ld_u32(&Ks[n * LD + kc * 16 + 8 + 2 * tq])};
-        mma_16816(s[ni], qf[kc], bf);
-      }
-    }
-
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      tmax[0] = fmaxf(tmax[0], fmaxf(s[ni][0], s[ni][1]));
-      tmax[1] = fmaxf(tmax[1], fmaxf(s[ni][2], s[ni][3]));
-    }
-    float alpha[2], mnew[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
-      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
-      mnew[r] = fmaxf(m_run[r], tmax[r] * scale_log2);
-      alpha[r] = exp2f(m_run[r] - mnew[r]);
-      m_run[r] = mnew[r];
-      l_run[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      s[ni][0] = exp2f(s[ni][0] * scale_log2 - mnew[0]);
-      s[ni][1] = exp2f(s[ni][1] * scale_log2 - mnew[0]);
-      s[ni][2] = exp2f(s[ni][2] * scale_log2 - mnew[1]);
-      s[ni][3] = exp2f(s[ni][3] * scale_log2 - mnew[1]);
-      l_run[0] += s[ni][0] + s[ni][1];
-      l_run[1] += s[ni][2] + s[ni][3];
-      acc[ni][0] *= alpha[0];
-      acc[ni][1] *= alpha[0];
-      acc[ni][2] *= alpha[1];
-      acc[ni][3] *= alpha[1];
-    }
-
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint32_t pa[4] = {pack_bf16x2(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16x2(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16x2(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16x2(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int n = ni * 8 + g;
-        const uint32_t bf[2] = {ld_u32(&Vt[n * LDT + kc * 16 + 2 * tq]),
-                                ld_u32(&Vt[n * LDT + kc * 16 + 8 + 2 * tq])};
-        mma_16816(acc[ni], pa, bf);
-      }
-    }
+  for (int n = 0; n < BKV / 8; ++n) {
+    s[4 * n] = exp2_ftz(fmaf(s[4 * n], scale_log2, -mnew[0]));
+    s[4 * n + 1] = exp2_ftz(fmaf(s[4 * n + 1], scale_log2, -mnew[0]));
+    s[4 * n + 2] = exp2_ftz(fmaf(s[4 * n + 2], scale_log2, -mnew[1]));
+    s[4 * n + 3] = exp2_ftz(fmaf(s[4 * n + 3], scale_log2, -mnew[1]));
+    l_run[0] += s[4 * n] + s[4 * n + 1];
+    l_run[1] += s[4 * n + 2] + s[4 * n + 3];
   }
+}
 
+// acc *= alpha per row; P = bf16(s) as A fragments (keys 16kc..16kc+15 are
+// the n-blocks 2kc and 2kc+1).
+__device__ __forceinline__ void rescale_and_pack(float (&acc)[32], const float (&alpha)[2],
+                                                 const float (&s)[BKV / 2],
+                                                 uint32_t (&p)[BKV / 16][4]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    acc[4 * n] *= alpha[0];
+    acc[4 * n + 1] *= alpha[0];
+    acc[4 * n + 2] *= alpha[1];
+    acc[4 * n + 3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kc = 0; kc < BKV / 16; ++kc) {
+    p[kc][0] = pack_bf16x2(s[8 * kc], s[8 * kc + 1]);
+    p[kc][1] = pack_bf16x2(s[8 * kc + 2], s[8 * kc + 3]);
+    p[kc][2] = pack_bf16x2(s[8 * kc + 4], s[8 * kc + 5]);
+    p[kc][3] = pack_bf16x2(s[8 * kc + 6], s[8 * kc + 7]);
+  }
+}
+
+// O = acc / (row sum) as bf16 into the [B, S, heads, D] output, for this
+// warpgroup's 64 query rows of work item `item`.
+__device__ __forceinline__ void write_o(__nv_bfloat16* __restrict__ o, const float (&acc)[32],
+                                        const float (&l)[2], int item, int q_tiles, int heads,
+                                        int row_in_tile, int tq, long long osb, long long osh,
+                                        long long oss) {
+  const int qt = item % q_tiles, h = (item / q_tiles) % heads, b = item / (q_tiles * heads);
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    inv[r] = 1.f / l_run[r];
+    const float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    inv[r] = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
   }
-  const long long row0 = q0 + warp * 16 + g;
+  const long long row0 = (long long)qt * BQ + row_in_tile;
+  __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
-  for (int ni = 0; ni < 8; ++ni) {
-    const int col = ni * 8 + 2 * tq;
-    *reinterpret_cast<__nv_bfloat162*>(ob + row0 * oss + col) =
-        __floats2bfloat162_rn(acc[ni][0] * inv[0], acc[ni][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * oss + col) =
-        __floats2bfloat162_rn(acc[ni][2] * inv[1], acc[ni][3] * inv[1]);
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * tq;
+    *reinterpret_cast<uint32_t*>(ob + row0 * oss + col) =
+        pack_bf16x2(acc[4 * n] * inv[0], acc[4 * n + 1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * oss + col) =
+        pack_bf16x2(acc[4 * n + 2] * inv[1], acc[4 * n + 3] * inv[1]);
   }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
+                       int S, int heads, int items, int4 q_order, int4 k_order, int4 v_order,
+                       long long osb, long long osh, long long oss, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int n_tiles = S / BKV, q_tiles = S / BQ;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&sm.q_full[s], 1);
+      mbar_init(&sm.q_empty[s], 4 * CONSUMERS);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], 4 * CONSUMERS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // Work item = (query tile, head, batch), the query tile fastest; the grid
+  // is persistent, so the next item's Q and K/V load under this one's tail.
+  if (wg == CONSUMERS) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS * 128) {
+      RingPos<2> qp;
+      RingPos<KV_STAGES> pos;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, qp.next()) {
+        const int qt = item % q_tiles, h = (item / q_tiles) % heads, b = item / (q_tiles * heads);
+        // Coordinates of the 4D maps: dim 0 is d, dims 1..3 are (s, head,
+        // batch) in the order of increasing stride that the host chose.
+        auto coords = [&](int4 order, int s) {
+          int c[4] = {0, 0, 0, 0};
+          c[order.x] = s;
+          c[order.y] = h;
+          c[order.z] = b;
+          return make_int4(c[0], c[1], c[2], c[3]);
+        };
+        const int4 cq = coords(q_order, qt * BQ);
+        mbar_wait(&sm.q_empty[qp.stage], qp.phase ^ 1u);
+        mbar_arrive_expect_tx(&sm.q_full[qp.stage], Q_BYTES);
+        tma_load_4d(sm.q[qp.stage], &q_map, &sm.q_full[qp.stage], 0, cq.y, cq.z, cq.w);
+        for (int j = 0; j < n_tiles; ++j, pos.next()) {
+          mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
+          const int4 ck = coords(k_order, j * BKV), cv = coords(v_order, j * BKV);
+          mbar_arrive_expect_tx(&sm.k_full[pos.stage], KV_BYTES);
+          tma_load_4d(sm.k[pos.stage], &k_map, &sm.k_full[pos.stage], 0, ck.y, ck.z, ck.w);
+          mbar_arrive_expect_tx(&sm.v_full[pos.stage], KV_BYTES);
+          tma_load_4d(sm.v[pos.stage], &v_map, &sm.v_full[pos.stage], 0, cv.y, cv.z, cv.w);
+        }
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int lane = tid & 31, warp = (tid >> 5) & 3;
+    const int tq = lane & 3;
+    const int row_in_tile = wg * 64 + warp * 16 + (lane >> 2);  // rows r and r + 8
+    // Ping-pong: each warpgroup starts its wgmmas between a sync on its own
+    // named barrier and an arrive on the other's, so one warpgroup's
+    // softmax runs while the other's products occupy the tensor cores.
+    // Warpgroup 1 skips its very last arrive, which nothing would match.
+    const int bar_mine = 1 + wg, bar_other = 2 - wg;
+    if (wg == 1) named_bar_arrive(bar_other, 256);  // warpgroup 0 goes first
+    RingPos<2> qp;
+    RingPos<KV_STAGES> pos, prev;
+    for (int item = blockIdx.x; item < items; item += gridDim.x, qp.next()) {
+      const bool last_item = item + (int)gridDim.x >= items;
+      const uint32_t q_addr = smem_u32(sm.q[qp.stage]) + wg * 64 * 128;
+      float m_run[2] = {-INFINITY, -INFINITY};  // running max (log2 units), rows r and r+8
+      float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
+      float acc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      float s[BKV / 2], alpha[2];
+      uint32_t p[BKV / 16][4];  // P of the previous tile, as bf16 A fragments
+
+      // Tile 0: S_0 alone.
+      mbar_wait(&sm.q_full[qp.stage], qp.phase);
+      mbar_wait(&sm.k_full[pos.stage], pos.phase);
+      named_bar_sync(bar_mine, 256);
+      start_s(s, q_addr, smem_u32(sm.k[pos.stage]));
+      if (wg == 0 || n_tiles > 1 || !last_item) named_bar_arrive(bar_other, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_tile(s, m_run, l_run, scale_log2, alpha);
+      rescale_and_pack(acc, alpha, s, p);
+      prev = pos;
+      pos.next();
+      // Tile j: S_j and P_{j-1} V_{j-1} started together; S_j's softmax runs
+      // while P_{j-1} V_{j-1} does.
+      for (int j = 1; j < n_tiles; ++j) {
+        mbar_wait(&sm.k_full[pos.stage], pos.phase);
+        mbar_wait(&sm.v_full[prev.stage], prev.phase);
+        named_bar_sync(bar_mine, 256);
+        fence_regs(acc);
+        start_s(s, q_addr, smem_u32(sm.k[pos.stage]));
+        start_pv(acc, p, smem_u32(sm.v[prev.stage]));
+        if (wg == 0 || j + 1 < n_tiles || !last_item) named_bar_arrive(bar_other, 256);
+        wgmma_wait<1>();  // S_j
+        fence_regs(s);
+        softmax_tile(s, m_run, l_run, scale_log2, alpha);
+        wgmma_wait<0>();  // P_{j-1} V_{j-1}
+        fence_regs(acc);
+#pragma unroll
+        for (int kc = 0; kc < BKV / 16; ++kc) fence_regs(p[kc]);
+        if (lane == 0) mbar_arrive(&sm.empty[prev.stage]);
+        rescale_and_pack(acc, alpha, s, p);
+        prev = pos;
+        pos.next();
+      }
+      if (lane == 0) mbar_arrive(&sm.q_empty[qp.stage]);  // the last S_j has completed
+      mbar_wait(&sm.v_full[prev.stage], prev.phase);
+      fence_regs(acc);
+      start_pv(acc, p, smem_u32(sm.v[prev.stage]));
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kc = 0; kc < BKV / 16; ++kc) fence_regs(p[kc]);
+      if (lane == 0) mbar_arrive(&sm.empty[prev.stage]);
+      write_o(o, acc, l_run, item, q_tiles, heads, row_in_tile, tq, osb, osh, oss);
+    }
+  }
+}
+
+// A 4D map over a [B, heads, S, 64] view: dim 0 is d (contiguous), dims
+// 1..3 are s, head and batch sorted by increasing stride, as TMA walks
+// them. `order` receives the map dim (1..3) of s, head and batch.
+int encode_qkv(CUtensorMap* map, const void* base, int B, int heads, int S, long long sb,
+               long long sh, long long ss, int box_s, int4* order) {
+  const long long stride[3] = {ss, sh, sb};
+  const int extent[3] = {S, heads, B};
+  int idx[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (stride[idx[j]] < stride[idx[i]]) {
+        const int t = idx[i];
+        idx[i] = idx[j];
+        idx[j] = t;
+      }
+  uint64_t dims[4] = {(uint64_t)D, 0, 0, 0}, strides[3];
+  uint32_t box[4] = {(uint32_t)D, 1, 1, 1};
+  int where[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (uint64_t)extent[idx[i]];
+    strides[i] = (uint64_t)stride[idx[i]] * 2;
+    if (idx[i] == 0) box[i + 1] = (uint32_t)box_s;
+    where[idx[i]] = i + 1;
+  }
+  *order = make_int4(where[0], where[1], where[2], 0);
+  return encode_bf16(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
 
 // q, k, v, o: bf16 [B, heads, S, 64] with the given element strides (the
-// last dim contiguous). S must be a multiple of 64.
+// last dim contiguous, the others multiples of 8, the bases 16-byte
+// aligned). S must be a multiple of S_MULTIPLE.
 extern "C" int dsg_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                                    int heads, int S, int head_dim,
                                    long long qsb, long long qsh, long long qss,
@@ -216,13 +361,24 @@ extern "C" int dsg_flash_attention(const void* q, const void* k, const void* v, 
                                    long long vsb, long long vsh, long long vss,
                                    long long osb, long long osh, long long oss, float scale,
                                    void* stream) {
-  if (head_dim != D || S % BQ != 0 || S % BKV != 0 || B <= 0 || heads <= 0) {
+  if (head_dim != D || S % S_MULTIPLE != 0 || B <= 0 || heads <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(S / BQ, heads, B);
-  flash_attention_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, S, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-      scale * 1.4426950408889634f);
+  CUtensorMap q_map, k_map, v_map;
+  int4 q_order, k_order, v_order;
+  int err = encode_qkv(&q_map, q, B, heads, S, qsb, qsh, qss, BQ, &q_order);
+  if (!err) err = encode_qkv(&k_map, k, B, heads, S, ksb, ksh, kss, BKV, &k_order);
+  if (!err) err = encode_qkv(&v_map, v, B, heads, S, vsb, vsh, vss, BKV, &v_order);
+  if (err) return err;
+  static int sms_by_device[MAX_DEVICES];
+  int ctas = 0;  // one per SM
+  err = prepare_launch((const void*)flash_attention_kernel, SMEM_BYTES, sms_by_device, &ctas);
+  if (err) return err;
+  const long long items = (long long)B * heads * (S / BQ);
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(items < ctas ? items : ctas);
+  flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+      q_map, k_map, v_map, (__nv_bfloat16*)o, S, heads, (int)items, q_order, k_order, v_order,
+      osb, osh, oss, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

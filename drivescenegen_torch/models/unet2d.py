@@ -25,7 +25,8 @@ the kernels on the card, never the sampling path.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from collections import Counter
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -236,6 +237,50 @@ class Upsample(nn.Module):
         B, H, W, C = x.shape
         x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
         return conv_module(x, self.conv)
+
+
+def conv3x3_shapes(cfg: ModelConfig) -> Counter:
+    """(H, C, Co) of every GN+SiLU+conv3x3 kernel call in one UNet2D forward
+    (H = W, the resolution of the call), counted as UNet2D.forward makes
+    them: two per ResnetBlock, except that under split_skip_conv an up
+    block's conv1 runs on the skip pair outside the kernel."""
+    ch = tuple(cfg.block_out_channels)
+    shapes = Counter()
+    H, cin, skips = cfg.sample_size, ch[0], [ch[0]]
+
+    def resnet(c_in, c_out, pair=False):
+        if not pair:
+            shapes[(H, c_in, c_out)] += 1
+        shapes[(H, c_out, c_out)] += 1
+
+    for i, c in enumerate(ch):
+        for _ in range(cfg.layers_per_block):
+            resnet(cin, c)
+            cin = c
+            skips.append(c)
+        if i != len(ch) - 1:
+            H = -(-H // 2)
+            skips.append(c)
+    resnet(cin, ch[-1])
+    resnet(ch[-1], ch[-1])
+    for i, c in enumerate(reversed(ch)):
+        for _ in range(cfg.layers_per_block + 1):
+            resnet(cin + skips.pop(), c, pair=cfg.split_skip_conv)
+            cin = c
+        if i != len(ch) - 1:
+            H *= 2
+    return shapes
+
+
+def mid_attention_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(heads, S, D) of the mid-block attention: S tokens of the lowest
+    resolution, head dim D."""
+    ch = tuple(cfg.block_out_channels)
+    side = cfg.sample_size
+    for _ in range(len(ch) - 1):
+        side = -(-side // 2)
+    heads = max(1, ch[-1] // cfg.attention_head_dim)
+    return heads, side * side, ch[-1] // heads
 
 
 class UNet2D(nn.Module):

@@ -6,8 +6,9 @@ impl="flash" (drivescenegen_tpu/models/unet2d.py:307-316, JAX's library
 Pallas kernel). The plain version is the impl="xla" branch (:319-328):
 logits accumulated in f32, softmax in f32, weights cast to the input dtype
 before the product with V. The kernel (csrc/flash_attention.cu) keeps the
-logits in registers with an online softmax; it is bound by the tensor
-cores and the softmax arithmetic at the mid block's 1024 tokens.
+logits in registers with an online softmax, streams K and V by TMA into
+wgmma; it is bound by the tensor cores and the softmax arithmetic at the
+mid block's 1024 tokens.
 
 On a CPU tensor `attention` runs the plain version; on a CUDA tensor it
 launches the kernel or raises. `attention.launches` counts launches.
@@ -30,12 +31,24 @@ def reference_attention(q, k, v, scale: float):
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
+def attention_shape_error(S: int, D: int):
+    """Why the CUDA kernel cannot take sequence length S and head dim D, or
+    None if it can. The limits are read from csrc/flash_attention.cu."""
+    head_dim = build.source_int("flash_attention", "D")
+    s_multiple = build.source_int("flash_attention", "S_MULTIPLE")
+    if D != head_dim or S % s_multiple:
+        return f"the kernel takes head_dim {head_dim} and S % {s_multiple} == 0, got D={D}, S={S}"
+    return None
+
+
 def _lib():
     lib = build.load("flash_attention")
     fn = lib.dsg_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+        # (q, k, v, o, B, heads, S, head_dim, 12 element strides, scale,
+        # stream) -> cudaError_t
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -43,9 +56,9 @@ def _lib():
 def attention(q, k, v, scale: float):
     """Non-causal softmax(q k^T * scale) v. q, k, v: [B, heads, S, D], any
     strides with a contiguous last dim (views into a fused qkv projection
-    are fine). The CUDA kernel takes bf16, D == 64 and S % 64 == 0, and
-    returns a [B, heads, S, D] view of a [B, S, heads, D] buffer, so that
-    merging the heads afterwards is free."""
+    are fine). The CUDA kernel takes bf16 at the shapes attention_shape_error
+    allows, and returns a [B, heads, S, D] view of a [B, S, heads, D]
+    buffer, so that merging the heads afterwards is free."""
     if _device_kind(q) == "cpu":
         return reference_attention(q, k, v, scale)
     B, Hh, S, D = q.shape
@@ -54,8 +67,9 @@ def attention(q, k, v, scale: float):
             raise TypeError(f"attention: {name} must be bf16 {tuple(q.shape)} on {q.device}")
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"attention: {name} needs a contiguous last dim and 16-byte aligned rows")
-    if D != 64 or S % 64:
-        raise ValueError(f"attention: the kernel takes head_dim 64 and S % 64 == 0, got D={D}, S={S}")
+    why = attention_shape_error(S, D)
+    if why:
+        raise ValueError(f"attention: {why}")
     fn = _lib()
     out = torch.empty((B, S, Hh, D), device=q.device, dtype=torch.bfloat16).transpose(1, 2)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -6,17 +6,21 @@ interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt at its first use and an unchanged one never is. Every
-nvcc runs at once when several libraries are missing. The build directory,
+The file name carries a hash of the source, the shared headers
+(`csrc/*.cuh`, e.g. hopper.cuh with the TMA/mbarrier/wgmma wrappers) and
+the flags, so an edited source or header is rebuilt at its first use and
+an unchanged one never is. Every nvcc runs at once when several
+libraries are missing. The build directory,
 drivescenegen_torch/build/, is listed in .gitignore.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,7 +51,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -90,6 +95,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def source_int(name: str, constant: str) -> int:
+    """The value of the line `constexpr int <constant> = <integer>;` in
+    csrc/<name>.cu. The wrappers read a kernel's shape limits here, so that
+    they check the values the C entry point checks, with no copy of them."""
+    src = (CSRC_DIR / f"{name}.cu").read_text()
+    found = re.findall(rf"^constexpr int {constant} = (\d+);", src, re.MULTILINE)
+    if len(found) != 1:
+        raise RuntimeError(f"csrc/{name}.cu has {len(found)} lines 'constexpr int {constant} = N;'")
+    return int(found[0])
 
 
 def check(status: int, what: str) -> None:

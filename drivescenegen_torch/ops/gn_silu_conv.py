@@ -8,9 +8,9 @@ Replaces the Pallas TPU kernel `gn_silu_conv3x3`
 with the conv's zero padding taken after the activation. As in the JAX
 code, the GroupNorm statistics are a separate pass: here the Triton stats
 kernel `gn_mul_add` (ops/group_norm.py) writes per-(b, c) f32 mul/add, and
-the CUDA kernel csrc/gn_silu_conv.cu (an implicit GEMM on the tensor cores
-with the affine + SiLU applied as its A-operand prologue) does the rest,
-so the activation never goes to device memory. It is bound by the tensor
+the CUDA kernel csrc/gn_silu_conv.cu (an implicit GEMM on wgmma fed by
+TMA, with the affine + SiLU applied to the A operand in shared memory)
+does the rest, so the activation never goes to device memory. It is bound by the tensor
 cores at every UNet shape; see the source for the design.
 
 On a CPU tensor `silu_conv3x3` runs its plain version; on a CUDA tensor it
@@ -50,10 +50,22 @@ def reference_gn_silu_conv3x3(x, scale, bias, weight, conv_bias, groups=32, eps=
     return reference_silu_conv3x3(x, mul, add, weight, conv_bias)
 
 
+def conv_shape_error(C: int, Co: int):
+    """Why the CUDA kernel cannot take C input and Co output channels, or
+    None if it can. The limits are read from csrc/gn_silu_conv.cu."""
+    c_multiple = build.source_int("gn_silu_conv", "CK")
+    co_multiple = build.source_int("gn_silu_conv", "CO_MULTIPLE")
+    if C % c_multiple or Co % co_multiple:
+        return (f"the kernel takes C % {c_multiple} == 0 and Co % {co_multiple} == 0, "
+                f"got C={C}, Co={Co}")
+    return None
+
+
 def _lib():
     lib = build.load("gn_silu_conv")
     fn = lib.dsg_silu_conv3x3
     if fn.argtypes is None:
+        # (x, mul, add, w, bias, out, B, H, W, C, Co, stream) -> cudaError_t
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -70,16 +82,20 @@ def silu_conv3x3(x, mul, add, weight, conv_bias):
         raise TypeError("silu_conv3x3: x must be contiguous bf16 [B, H, W, C] on CUDA")
     if tuple(weight.shape) != (Co, C, 3, 3):
         raise ValueError(f"silu_conv3x3: weight {tuple(weight.shape)} is not [Co, {C}, 3, 3]")
-    if C % 32 or Co % 64:
-        raise ValueError(f"silu_conv3x3: the kernel takes C % 32 == 0 and Co % 64 == 0, got C={C}, Co={Co}")
+    why = conv_shape_error(C, Co)
+    if why:
+        raise ValueError(f"silu_conv3x3: {why}")
     if mul.shape != (B, C) or add.shape != (B, C) or conv_bias.shape != (Co,):
         raise ValueError(f"silu_conv3x3: mul/add must be [{B}, {C}] and conv_bias [{Co}]")
     if any(t.device != x.device for t in (mul, add, weight, conv_bias)):
         raise ValueError(f"silu_conv3x3: every input must be on {x.device}")
+    if x.data_ptr() % 16:
+        raise ValueError("silu_conv3x3: x must be 16-byte aligned (TMA)")
     fn = _lib()
     mul = mul.to(torch.float32).contiguous()
     add = add.to(torch.float32).contiguous()
-    # [Co, 3, 3, C] bf16: K index (ky*3 + kx)*C + c, as the kernel walks it.
+    # [Co, 3, 3, C] bf16 = [Co, 9C]: K index (ky*3 + kx)*C + c, as the
+    # kernel's TMA boxes walk it; free on the model's channels-last copy.
     w = weight.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
     cb = conv_bias.to(torch.float32).contiguous()
     out = torch.empty((B, H, W, Co), device=x.device, dtype=torch.bfloat16)

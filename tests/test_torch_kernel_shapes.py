@@ -1,0 +1,119 @@
+"""The shapes chip_smoke.py holds the CUDA kernels to are the shapes the
+model gives them: the GN+SiLU+conv3x3 calls and the mid-block attention
+that a UNet2D forward really makes are recorded on the CPU and compared
+with models/unet2d.py conv3x3_shapes / mid_attention_shape, and every
+full-width shape passes the kernel wrappers' limits (the same predicates
+the wrappers raise through)."""
+
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+
+from drivescenegen_torch import ops
+from drivescenegen_torch.config import ModelConfig
+from drivescenegen_torch.models import UNet2D
+from drivescenegen_torch.models.unet2d import conv3x3_shapes, mid_attention_shape
+from drivescenegen_torch.ops import build
+from drivescenegen_torch.ops import gn_silu_conv as gn_silu_conv_mod
+from drivescenegen_torch.ops.attention import attention_shape_error
+from drivescenegen_torch.ops.gn_silu_conv import conv_shape_error
+
+TINY = dict(sample_size=16, block_out_channels=(8, 16), layers_per_block=1,
+            norm_num_groups=2, attention_head_dim=8, dtype="float32")
+
+CONFIGS = {
+    "default": {},
+    "split_skip_conv": dict(split_skip_conv=True),
+    "three_levels": dict(block_out_channels=(8, 16, 32), layers_per_block=2),
+    "sample_24": dict(sample_size=24),
+    "cond": dict(cond_channels=2),
+}
+
+
+def _forward(cfg, plain):
+    torch.manual_seed(0)
+    model = UNet2D(cfg, device="cpu", plain=plain).eval()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2, cfg.sample_size, cfg.sample_size,
+                                          cfg.in_channels)).astype(np.float32))
+    with torch.no_grad():
+        model(x, torch.tensor([3, 500]))
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["plain", "wrapper"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_conv3x3_shapes_are_the_forward_calls(monkeypatch, name, plain):
+    """plain=True records ops.reference_gn_silu_conv3x3 (the plain model's
+    call); plain=False records the kernel wrapper silu_conv3x3 that
+    gn_silu_conv3x3 launches on the sampling path."""
+    cfg = ModelConfig(**dict(TINY, **CONFIGS[name]))
+    seen = Counter()
+    if plain:
+        inner = ops.reference_gn_silu_conv3x3
+
+        def record(x, scale, bias, weight, conv_bias, *args, **kw):
+            seen[(x.shape[1], x.shape[-1], weight.shape[0])] += 1
+            assert x.shape[1] == x.shape[2]
+            return inner(x, scale, bias, weight, conv_bias, *args, **kw)
+
+        monkeypatch.setattr(ops, "reference_gn_silu_conv3x3", record)
+    else:
+        inner = gn_silu_conv_mod.silu_conv3x3
+
+        def record(x, mul, add, weight, conv_bias):
+            seen[(x.shape[1], x.shape[-1], weight.shape[0])] += 1
+            assert x.shape[1] == x.shape[2]
+            return inner(x, mul, add, weight, conv_bias)
+
+        monkeypatch.setattr(gn_silu_conv_mod, "silu_conv3x3", record)
+    _forward(cfg, plain)
+    assert seen == conv3x3_shapes(cfg)
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["plain", "wrapper"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_mid_attention_shape_is_the_forward_call(monkeypatch, name, plain):
+    cfg = ModelConfig(**dict(TINY, **CONFIGS[name]))
+    seen = []
+    attr = "reference_attention" if plain else "attention"
+    inner = getattr(ops, attr)
+
+    def record(q, k, v, scale):
+        seen.append(tuple(q.shape[1:]))
+        assert k.shape == q.shape and v.shape == q.shape
+        return inner(q, k, v, scale)
+
+    monkeypatch.setattr(ops, attr, record)
+    _forward(cfg, plain)
+    assert seen == [mid_attention_shape(cfg)]
+
+
+def test_full_width_shapes_pass_the_kernel_limits():
+    cfg = ModelConfig(use_pallas_gn=True, use_pallas_gn_conv=True, attention_impl="flash")
+    shapes = conv3x3_shapes(cfg)
+    assert sum(shapes.values()) == 44  # two per ResnetBlock, 22 ResnetBlocks
+    assert min(h for h, _, _ in shapes) == cfg.sample_size >> 3
+    for H, C, Co in shapes:
+        assert conv_shape_error(C, Co) is None, (H, C, Co)
+    heads, S, D = mid_attention_shape(cfg)
+    assert (heads, S, D) == (8, 1024, 64)
+    assert attention_shape_error(S, D) is None
+
+
+@pytest.mark.parametrize("C,Co", [(32, 64), (64, 32), (96, 128), (128, 96)])
+def test_conv_limits_reject_what_the_kernel_cannot_take(C, Co):
+    assert conv_shape_error(C, Co) is not None
+
+
+@pytest.mark.parametrize("S,D", [(1024, 32), (1024, 128), (64, 64), (1000, 64)])
+def test_attention_limits_reject_what_the_kernel_cannot_take(S, D):
+    assert attention_shape_error(S, D) is not None
+
+
+def test_limits_are_read_from_the_kernel_sources():
+    assert build.source_int("flash_attention", "D") == mid_attention_shape(ModelConfig())[2]
+    assert build.source_int("gn_silu_conv", "CK") == 64
+    with pytest.raises(RuntimeError, match="0 lines"):
+        build.source_int("gn_silu_conv", "NO_SUCH_LIMIT")
