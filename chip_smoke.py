@@ -7,7 +7,10 @@ Phases, each printed as it runs; any failure exits non-zero:
   1. device    the card's name and power limit; TF32 off for the references
   2. build     nvcc builds csrc/*.cu from the checkout (all at once), with
                ptxas's register/spill report; cuobjdump's SASS of each CUDA
-               library must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+               library must hold what its source states on its line
+               "// SASS must hold:" (wgmma and TMA loads, HGMMA and UTMALDG,
+               for the forward kernels; mma.sync and ldmatrix, HMMA and
+               LDSM, for the attention backward)
   3. kernels   every kernel on the sampling path against its plain PyTorch
                version, at every shape the full-width UNet gives it
                (batch 8, 256x256; models/unet2d.py conv3x3_shapes and
@@ -25,6 +28,17 @@ Phases, each printed as it runs; any failure exits non-zero:
                wrapper (enqueue only, at a tiny shape)
   6. cli       the generation CLI on a model directory written from the
                same weights (config.yaml + params.npz)
+  7. train     the training path at full width (batch 14, default
+               TrainConfig, EMA on): the attention backward kernels against
+               their plain version at [14, 8, 1024, 64] and at a ragged
+               shape, the forward's lse against torch.logsumexp, two runs
+               bit-identical, times against the bound, the plain version and
+               SDPA's backward; one train step with kernels against one with
+               plain versions on the same weights, batch, noise and t; the
+               launch counts and ms of a run of steps, samples/s, the
+               device's idle share and peak memory; then the train CLI as a
+               user runs it, on a seeded synthetic PNG corpus: ~30 steps,
+               a resume, and a params.npz the generation CLI samples from
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -32,6 +46,7 @@ line, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -52,8 +67,13 @@ F32_TOL = 1e-4
 # The whole UNet forward, bf16 end to end: rounding differences of 44 conv
 # pairs compound; the bound tests/test_unet_fused_gn_conv.py uses.
 FORWARD_TOL = 0.05
-# Instructions the SASS of each CUDA library must contain: wgmma and TMA.
-SASS_MUST_HAVE = ("HGMMA", "UTMALDG")
+# Phase 7's train-step comparison, kernels against plain versions, bf16 end
+# to end: the loss within 1% relative, grad_norm within 2%, and the cosine
+# of the flattened gradients at least 0.999.
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_COS_MIN = 0.01, 0.02, 0.999
+# The forward's lse is f32 from f32 accumulators: summation order only.
+LSE_TOL = 1e-4
+TRAIN_STEPS, CLI_STEPS, CLI_RESUME_STEPS, CLI_IMAGES = 10, 30, 36, 256
 
 
 class SmokeFailure(Exception):
@@ -114,6 +134,27 @@ def time_ms(fn, min_total_ms: float = 30.0, graph: bool = True) -> float:
     return start.elapsed_time(stop) / n
 
 
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of fn: the time of the kernels it launches,
+    summed by torch.profiler over n calls after a warm-up call. Free of the
+    host's enqueue cost, as a CUDA-graph replay is, for calls that cannot
+    be captured in one (autograd's backward)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU)
+    check(total_us > 0, "the profiler recorded no device time")
+    return total_us / 1e3 / n
+
+
 def host_us(fn, n: int = 2000) -> float:
     """Host time per call of n back-to-back calls, without waiting for the
     device: what the eager loop pays to enqueue the call."""
@@ -142,18 +183,19 @@ def sass_of(lib_path) -> str:
     return out.stdout
 
 
-def profile_forward(model, x, t, n: int = 3, top: int = 12) -> None:
-    """Device time of n kernel forwards by kernel name (torch.profiler), and
-    the device's busy share of the wall time."""
+def profile_device(fn, n: int = 3, label: str = "forward", top: int = 12):
+    """Device time of n calls of fn by kernel name (torch.profiler), and
+    the device's busy share of the wall time, which it returns (None when
+    the profiler recorded no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            model(x, t)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -168,13 +210,54 @@ def profile_forward(model, x, t, n: int = 3, top: int = 12) -> None:
     busy = sum(r[0] for r in rows)
     if not rows:
         print("profile: the profiler recorded no device time")
-        return
-    print(f"profile: {n} forwards in {wall_ms:.2f} ms wall; device busy {busy * n:.2f} ms "
-          f"({100 * busy * n / wall_ms:.1f}%); per forward by kernel:")
+        return None
+    print(f"profile: {n} {label}s in {wall_ms:.2f} ms wall; device busy {busy * n:.2f} ms "
+          f"({100 * busy * n / wall_ms:.1f}%); per {label} by kernel:")
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         print(f"  {ms:8.3f} ms  x{count:<4d} {name[:90]}")
     print(f"  {sum(r[0] for r in sorted(rows, reverse=True)[top:]):8.3f} ms  (the other "
           f"{max(0, len(rows) - top)} kernels)")
+    return busy * n / wall_ms
+
+
+def synthetic_corpus(directory: str, n: int, res: int, seed: int) -> str:
+    """n seeded res x res RGB PNGs: a gray field with random lane-like bands
+    and dots, as rasterized scenes look. Returns the glob."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:res, 0:res]
+    for i in range(n):
+        img = np.full((res, res, 3), 128, np.uint8)
+        for _ in range(rng.integers(2, 6)):
+            a, c, w = rng.uniform(-1, 1), rng.uniform(0, res), rng.uniform(2, 6)
+            band = np.abs(yy - (a * xx + c)) < w
+            img[band] = rng.integers(0, 256, size=3, dtype=np.uint8)
+        pts = rng.integers(0, res, size=(rng.integers(3, 12), 2))
+        for y, x in pts:
+            img[max(0, y - 3):y + 3, max(0, x - 3):x + 3] = rng.integers(0, 256, size=3)
+        Image.fromarray(img).save(os.path.join(directory, f"{i:05d}.png"))
+    return os.path.join(directory, "*.png")
+
+
+def run_cli(here: str, args, timeout: int = 600) -> str:
+    """python -m drivescenegen_torch.scripts.train with `args`, from the
+    repository root; returns its log (stderr), raising if it failed."""
+    cmd = [sys.executable, "-m", "drivescenegen_torch.scripts.train", *args]
+    out = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=timeout)
+    log = out.stdout + out.stderr
+    check(out.returncode == 0, f"train CLI exited {out.returncode}:\n{log[-3000:]}")
+    return log
+
+
+def logged_launches(log: str) -> dict:
+    """The launch counts the train CLI logs at its end."""
+    import ast
+
+    lines = [ln for ln in log.splitlines() if "kernel launches" in ln]
+    check(len(lines) == 1, f"train CLI logged {len(lines)} launch-count lines")
+    return ast.literal_eval(lines[0].split("kernel launches ", 1)[1])
 
 
 class KernelRow:
@@ -211,13 +294,16 @@ def main() -> int:
     sys.path.insert(0, here)
     try:
         from drivescenegen_torch import ops
-        from drivescenegen_torch.config import Config, ModelConfig, save_config
+        from drivescenegen_torch.config import Config, ModelConfig, TrainConfig, save_config
         from drivescenegen_torch.diffusion import ddim_sample, make_schedule
         from drivescenegen_torch.models import UNet2D
         from drivescenegen_torch.models.unet2d import conv3x3_shapes, mid_attention_shape
         from drivescenegen_torch.models.convert import save_npz, torch_to_flax
         from drivescenegen_torch.ops import build
         from drivescenegen_torch.scripts import generation
+        from drivescenegen_torch.training import (create_optimizer, init_train_state,
+                                                  make_train_step)
+        from drivescenegen_torch.training.checkpoint import latest_step
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e}); run it from the "
               f"repository root", file=sys.stderr)
@@ -255,7 +341,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f}s")
     for name in build.SOURCES:
         sass = sass_of(build.library_path(name))
-        found = {op: sass.count(op) for op in SASS_MUST_HAVE}
+        found = {op: sass.count(op) for op in build.sass_must_hold(name)}
         print(f"{name}: SASS " + ", ".join(f"{op} x{n}" for op, n in found.items()))
         check(all(found.values()), f"{name}: SASS lacks {[op for op, n in found.items() if not n]}")
 
@@ -431,7 +517,8 @@ def main() -> int:
           f"{fwd_plain_ms:.2f} ms; kernels replayed as a CUDA graph (device only) "
           f"{fwd_graph_ms:.2f} ms (batch {B})")
     del plain_model, eps_p
-    profile_forward(model, xin, tin)
+    with torch.no_grad():
+        profile_device(lambda: model(xin, tin))
 
     # ---------------------------------------------------------------- 5
     phase(f"5 DDIM-{STEPS} sampling, batch {B}, {S0}x{S0}")
@@ -452,7 +539,7 @@ def main() -> int:
     counts = ops.launch_counts()
     print(f"DDIM-{STEPS}: {dt:.3f} s, {B / dt:.4f} scenes/s; launches {counts}")
     want = {"silu_conv3x3": 44 * STEPS, "gn_mul_add": 45 * STEPS, "silu_affine": STEPS,
-            "attention": STEPS}
+            "attention": STEPS, "attention_bwd_dq": 0, "attention_bwd_dkv": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     # The eager loop launches every kernel from the host, whose cores the
     # machine shares: two more runs show the spread, and the CUDA-graph
@@ -469,6 +556,7 @@ def main() -> int:
     print(f"DDIM output: finite, in [{lo:.3f}, {hi:.3f}]")
     for name, row in rows.items():
         row.d["launches"] = counts[name]
+    del sample
 
     # Host cost per wrapper call at a tiny shape (the device work is
     # negligible), beside one PyTorch op of each kind for scale.
@@ -501,11 +589,239 @@ def main() -> int:
         check(pngs == [f"loop_{n:03d}_batch_{i:03d}.png" for n in range(2) for i in range(2)],
               f"cli wrote {pngs}")
 
+    del model, schedule
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 7
+    tcfg = TrainConfig(ema_decay=0.9999)
+    TB = tcfg.batch_size
+    phase(f"7 training at full width, batch {TB}")
+    # 7a: the attention backward kernels at the train step's shape, q, k, v
+    # as views of the fused qkv projection and dO as the graph hands it
+    # over (a [B, heads, S, D] view of [B, S, heads, D]).
+    sc = 1.0 / math.sqrt(hd)
+    qkv = randn(TB, S, 3 * Cm).bfloat16()
+    q, k, v = (tt.view(TB, S, heads, hd).transpose(1, 2) for tt in qkv.split(Cm, dim=-1))
+    do = randn(TB, S, heads, hd).bfloat16().transpose(1, 2)
+    o, lse = ops.attention_with_lse(q, k, v, sc)
+    lse_err = (lse - ops.reference_attention_lse(q, k, sc)).abs().max().item()
+    print(f"attention lse [{TB},{heads},{S}]: max abs err {lse_err:.3g} against torch.logsumexp "
+          f"(tol {LSE_TOL})")
+    check(lse_err <= LSE_TOL, f"attention lse err {lse_err}")
+    label = f"[{TB},{heads},{S},{hd}]"
+    got = ops.attention_bwd(q, k, v, o, lse, do, sc)
+    ref = ops.reference_attention_bwd(q, k, v, o, lse, do, sc)
+    errs = {}
+    for name, a_, b_ in zip(("dq", "dk", "dv"), got, ref):
+        errs[name] = err_of(a_, b_)
+        e, m = errs[name]
+        print(f"attention_bwd {label} {name}: err {e:.3g} (max {m:.3g}, tol {BF16_TOL * m:.3g})")
+        check(e <= BF16_TOL * m, f"attention_bwd {label} {name}: err {e} vs max {m}")
+    again = ops.attention_bwd(q, k, v, o, lse, do, sc)
+    same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+    print(f"attention_bwd {label}: two runs bit-identical: {same}")
+    check(same, "attention_bwd is not deterministic")
+    di = torch.empty_like(lse)
+    dq_ms = time_ms(lambda: ops.attention_bwd_dq(q, k, v, o, do, lse, di, sc))
+    dkv_ms = time_ms(lambda: ops.attention_bwd_dkv(q, k, v, do, lse, di, sc))
+    plain_ms = time_ms(lambda: ops.reference_attention_bwd(q, k, v, o, lse, do, sc), graph=False)
+    # Library yardstick: SDPA's backward alone (PyTorch picks its backend;
+    # the forward is excluded), by device time: its host enqueue is about
+    # as long as its device time, so an eager loop would time the host.
+    ql, kl, vl = (tt.detach().requires_grad_() for tt in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, scale=sc)
+    lib_ms = device_ms(lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), do, retain_graph=True))
+    lib_name = sdpa_out.grad_fn.name()
+    del ql, kl, vl, sdpa_out
+    # Bounds: per (batch, head) a product is 2 S^2 D FLOP. The dQ kernel's
+    # function needs S, dP and dQ (3), the dK/dV kernel's S, dP, dV and dK
+    # (4); the backward as a whole 5, as S and dP are shared.
+    prod = 2 * TB * heads * S * S * hd
+    elems = TB * heads * S * hd
+    bnd_dq = bound_ms(5 * elems * 2 + TB * heads * S * 4 + elems * 2 + TB * heads * S * 4,
+                      3 * prod)
+    bnd_dkv = bound_ms(4 * elems * 2 + 2 * TB * heads * S * 4 + 2 * elems * 2, 4 * prod)
+    bnd_all = bound_ms(5 * elems * 2 + TB * heads * S * 4 + 3 * elems * 2, 5 * prod)
+    rows["attention_bwd_dq"] = KernelRow(
+        "attention_bwd_dq", "cuda", "drivescenegen_torch/csrc/flash_attention_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")
+    rows["attention_bwd_dkv"] = KernelRow(
+        "attention_bwd_dkv", "cuda", "drivescenegen_torch/csrc/flash_attention_bwd.cu",
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:941")
+    # plain_ms and library_ms of both rows are the whole backward's: no
+    # plain or library call computes dq alone, or dk and dv alone.
+    rows["attention_bwd_dq"].add(1, errs["dq"][0], errs["dq"][1], dq_ms, plain_ms, bnd_dq, lib_ms)
+    e_kv = max(errs["dk"][0], errs["dv"][0])
+    m_kv = max(errs["dk"][1], errs["dv"][1])
+    rows["attention_bwd_dkv"].add(1, e_kv, m_kv, dkv_ms, plain_ms, bnd_dkv, lib_ms)
+    for row in (rows["attention_bwd_dq"], rows["attention_bwd_dkv"]):
+        row.d["yardsticks_cover"] = "dq, dk and dv together (plain_ms, library_ms)"
+    print(f"attention_bwd {label}: dQ kernel {dq_ms:.4f} ms ({3 * prod / dq_ms / 1e9:.1f} "
+          f"TFLOP/s, bound {bnd_dq[0]:.4f}), dK/dV kernel {dkv_ms:.4f} ms "
+          f"({4 * prod / dkv_ms / 1e9:.1f} TFLOP/s, bound {bnd_dkv[0]:.4f}); both "
+          f"{dq_ms + dkv_ms:.4f} ms against the backward's bound {bnd_all[0]:.4f} ms "
+          f"({bnd_all[1]}), SDPA backward ({lib_name}, device time) {lib_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    del qkv, q, k, v, do, o, lse, got, ref, again, di
+    # Ragged, checked and not timed: other batch and heads, the smallest S
+    # the backward takes (o and lse from the plain forward: the forward
+    # kernel needs S % 128), and a dO whose last dim is not contiguous.
+    s_min = build.source_int("flash_attention_bwd", "S_MULTIPLE")
+    q, k, v = (randn(3, 5, s_min, hd).bfloat16() for _ in range(3))
+    do = randn(3, 5, hd, s_min).bfloat16().transpose(2, 3)
+    o = ops.reference_attention(q, k, v, sc)
+    lse = ops.reference_attention_lse(q, k, sc).float().contiguous()
+    got = ops.attention_bwd(q, k, v, o, lse, do, sc)
+    ref = ops.reference_attention_bwd(q, k, v, o, lse, do, sc)
+    for name, a_, b_ in zip(("dq", "dk", "dv"), got, ref):
+        e, m = err_of(a_, b_)
+        print(f"attention_bwd [3,5,{s_min},{hd}] {name} (ragged, dO strides "
+              f"{tuple(do.stride())}): err {e:.3g} (max {m:.3g})")
+        check(e <= BF16_TOL * m, f"attention_bwd ragged {name}: err {e} vs max {m}")
+    del q, k, v, do, o, lse, got, ref
+
+    # 7b: one full-width train step with kernels against one with plain
+    # versions, same weights, batch, noise and t.
+    tcfg_model = ModelConfig(attention_impl="flash")
+    schedule = make_schedule(device=dev)
+    batch = torch.randint(0, 256, (TB, S0, S0, tcfg_model.in_channels), generator=gen,
+                          device=dev).to(torch.uint8)
+    noise = randn(TB, S0, S0, tcfg_model.in_channels)
+    tt_ = torch.randint(0, 1000, (TB,), generator=gen, device=dev)
+
+    weights = UNet2D(tcfg_model, device=dev, generator=gen).state_dict()
+
+    def train_setup(plain):
+        m = UNet2D(tcfg_model, device=dev, for_training=True, plain=plain)
+        m.load_state_dict(weights)
+        opt, lr_fn = create_optimizer(tcfg, 1000, m.parameters())
+        return init_train_state(m, opt, ema=True), make_train_step(schedule, lr_fn, tcfg)
+
+    results = {}
+    for plain in (False, True):
+        st, step = train_setup(plain)
+        ops.reset_launch_counts()
+        st, m = step(st, batch, noise, tt_)
+        torch.cuda.synchronize()
+        counts1 = ops.launch_counts()
+        named = list(st.model.named_parameters())
+        missing = [n for n, p in named if p.grad is None or not bool(p.grad.any())]
+        check(not missing, f"train step (plain={plain}): no gradient for {missing[:5]}")
+        flat = torch.cat([p.grad.float().reshape(-1) for _, p in named])
+        results[plain] = (m["loss"].item(), m["grad_norm"].item(), flat, counts1)
+        if not plain:
+            kstate, kstep = st, step
+        else:
+            del st, step, named, flat
+    del weights
+    (lk, gk, fk, ck), (lp, gp, fp, cp) = results[False], results[True]
+    cos = torch.nn.functional.cosine_similarity(fk, fp, dim=0).item()
+    print(f"train step kernels vs plain: loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / lp:.2e}, "
+          f"tol {TRAIN_LOSS_TOL}), grad_norm {gk:.6f} vs {gp:.6f} (rel {abs(gk - gp) / gp:.2e}, "
+          f"tol {TRAIN_GNORM_TOL}), gradient cosine {cos:.6f} (min {TRAIN_COS_MIN}); every "
+          f"parameter has a gradient")
+    check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp), "train step loss differs")
+    check(abs(gk - gp) <= TRAIN_GNORM_TOL * abs(gp), "train step grad_norm differs")
+    check(cos >= TRAIN_COS_MIN, f"train step gradient cosine {cos}")
+    want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
+             "attention_bwd_dq": 1, "attention_bwd_dkv": 1}
+    check(ck == want1, f"launches in one kernel train step {ck} != {want1}")
+    check(set(cp.values()) == {0}, f"the plain step launched kernels: {cp}")
+    del results, fk, fp
+    torch.cuda.empty_cache()
+
+    # 7c: a run of steps: launch counts, ms per step, samples/s, idle share,
+    # peak memory.
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        kstate, m = kstep(kstate, batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        kstate, m = kstep(kstate, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {name: n * TRAIN_STEPS for name, n in want1.items()}
+    print(f"{TRAIN_STEPS} train steps: launches {train_counts}")
+    check(train_counts == want, f"launches over {TRAIN_STEPS} train steps {train_counts} != {want}")
+    check(math.isfinite(m["loss"].item()), "train loss is not finite")
+    med_ms = sorted(step_ms)[len(step_ms) // 2]
+    busy = profile_device(lambda: kstep(kstate, batch), n=3, label="train step")
+    idle = None if busy is None else 1.0 - busy
+    print(f"train step: median {med_ms:.2f} ms of {', '.join(f'{x:.1f}' for x in step_ms)} ms; "
+          f"{TB / med_ms * 1e3:.2f} samples/s; device idle "
+          f"{'not measured' if idle is None else f'{100 * idle:.1f}%'} of the profiled steps; "
+          f"peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
+    for name, row in rows.items():
+        row.d["launches_per_train_step"] = train_counts[name] // TRAIN_STEPS
+        if name.startswith("attention_bwd"):
+            row.d["launches"] = train_counts[name]
+    del kstate, kstep, batch, noise
+    torch.cuda.empty_cache()
+
+    # 7d: the train CLI as a user runs it: a seeded synthetic corpus, the
+    # whole corpus on the device, ~30 steps, a resume, and the export
+    # sampled by the generation CLI.
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        os.makedirs(data_dir)
+        t0 = time.perf_counter()
+        pattern = synthetic_corpus(data_dir, CLI_IMAGES, S0, seed=20260916)
+        print(f"cli corpus: {CLI_IMAGES} PNGs of {S0}x{S0} in {time.perf_counter() - t0:.1f} s")
+        cfg_path = os.path.join(tmp, "cfg.yaml")
+        run_cfg = Config(model=tcfg_model)
+        run_cfg.train = dataclasses.replace(tcfg, device_data="on", eval_inference_steps=10,
+                                            log_every=5, output_dir=out_dir,
+                                            dataset_glob=pattern)
+        save_config(run_cfg, cfg_path)
+        t0 = time.perf_counter()
+        log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI_STEPS)])
+        cli_s = time.perf_counter() - t0
+        records = [json.loads(ln) for ln in open(os.path.join(out_dir, "logs", "metrics.jsonl"))]
+        last = records[-1]
+        print(f"cli: {CLI_STEPS} steps in {cli_s:.1f} s wall (process start, upload, two "
+              f"checkpoints and eval samples included); last log step {last['step']} loss "
+              f"{last['loss']:.4f} at {last['samples_per_sec']:.1f} samples/s")
+        check(last["step"] == CLI_STEPS and math.isfinite(last["loss"]),
+              f"train CLI ended at {last}")
+        check(latest_step(os.path.join(out_dir, "checkpoints")) == CLI_STEPS,
+              "train CLI: no checkpoint at its last step")
+        launched = logged_launches(log)
+        check(launched["attention_bwd_dq"] == CLI_STEPS == launched["attention_bwd_dkv"],
+              f"train CLI launches {launched}")
+        log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI_RESUME_STEPS),
+                             "--resume"])
+        check(f"resumed from step {CLI_STEPS}" in log, "train CLI --resume did not resume")
+        check(latest_step(os.path.join(out_dir, "checkpoints")) == CLI_RESUME_STEPS,
+              "train CLI --resume did not reach its max_steps")
+        print(f"cli resume: {CLI_STEPS} -> {CLI_RESUME_STEPS} steps; launches "
+              f"{logged_launches(log)}")
+        gen_dir = os.path.join(tmp, "gen")
+        generation.main(["--model_dir", out_dir, "--output_dir", gen_dir, "--sampler", "ddim",
+                         "--steps", "10", "--batch_size", "1", "--num_batches", "1",
+                         "--device", "cuda"])
+        check(os.listdir(gen_dir) == ["loop_000_batch_000.png"], "generation from the export")
+        print("cli export: the generation CLI sampled loop_000_batch_000.png (DDIM-10) from the "
+              "trained params.npz")
+
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
                                   "ddim_seconds_runs": times, "host_us_per_call": host,
-                                  "batch": B, "steps": STEPS, "card": smi}}))
+                                  "batch": B, "steps": STEPS,
+                                  "train_batch": TB, "train_step_ms_median": med_ms,
+                                  "train_step_ms": step_ms,
+                                  "train_samples_per_s": TB / med_ms * 1e3,
+                                  "train_device_idle": idle, "train_peak_memory_gb": peak_gb,
+                                  "attention_bwd_ms": dq_ms + dkv_ms,
+                                  "attention_bwd_bound_ms": bnd_all[0],
+                                  "attention_bwd_sdpa_ms": lib_ms,
+                                  "attention_bwd_plain_ms": plain_ms,
+                                  "train_cli_seconds": cli_s, "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -32,7 +32,10 @@
 //     their products (a named-barrier ping-pong), so one's softmax
 //     overlaps the other's products;
 //   - the row sum is normalized once at the end, and the epilogue writes
-//     bf16 straight into the [B, S, heads, D] output.
+//     bf16 straight into the [B, S, heads, D] output; given an lse buffer
+//     (training), it also stores each row's log-sum-exp m + log(l) in f32,
+//     the residual the backward kernels (flash_attention_bwd.cu) read, as
+//     the library's forward saves l and m for its backward.
 // The ping-pong needs two consumer warpgroups, so BQ = 128; the registers
 // of 384 threads leave room for one CTA per SM (168 a thread at launch, 16
 // bytes of stack, no spills). BKV and KV_STAGES were chosen by timing the
@@ -40,6 +43,8 @@
 // any strided views with a contiguous last dim and 16-byte multiple
 // strides (the fused qkv projection's views are); each launch encodes one
 // tensor map per operand.
+//
+// SASS must hold: HGMMA UTMALDG
 
 #include <math.h>
 
@@ -165,19 +170,27 @@ __device__ __forceinline__ void rescale_and_pack(float (&acc)[32], const float (
 }
 
 // O = acc / (row sum) as bf16 into the [B, S, heads, D] output, for this
-// warpgroup's 64 query rows of work item `item`.
-__device__ __forceinline__ void write_o(__nv_bfloat16* __restrict__ o, const float (&acc)[32],
-                                        const float (&l)[2], int item, int q_tiles, int heads,
+// warpgroup's 64 query rows of work item `item`; with lse != nullptr also
+// the rows' natural-log log-sum-exp, m (log2 units) * ln 2 + ln(row sum),
+// into lse[B, heads, S].
+__device__ __forceinline__ void write_o(__nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                                        const float (&acc)[32], const float (&l)[2],
+                                        const float (&m)[2], int item, int q_tiles, int heads,
                                         int row_in_tile, int tq, long long osb, long long osh,
                                         long long oss) {
   const int qt = item % q_tiles, h = (item / q_tiles) % heads, b = item / (q_tiles * heads);
+  const long long row0 = (long long)qt * BQ + row_in_tile;
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
-    inv[r] = 1.f / (sum + __shfl_xor_sync(0xffffffffu, sum, 2));
+    float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    inv[r] = 1.f / sum;
+    if (lse != nullptr && tq == 0) {
+      lse[((long long)b * heads + h) * (q_tiles * BQ) + row0 + 8 * r] =
+          m[r] * 0.6931471805599453f + logf(sum);
+    }
   }
-  const long long row0 = (long long)qt * BQ + row_in_tile;
   __nv_bfloat16* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -193,8 +206,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-                       int S, int heads, int items, int4 q_order, int4 k_order, int4 v_order,
-                       long long osb, long long osh, long long oss, float scale_log2) {
+                       float* __restrict__ lse, int S, int heads, int items, int4 q_order,
+                       int4 k_order, int4 v_order, long long osb, long long osh, long long oss, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
   const int tid = threadIdx.x;
@@ -316,7 +329,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kc = 0; kc < BKV / 16; ++kc) fence_regs(p[kc]);
       if (lane == 0) mbar_arrive(&sm.empty[prev.stage]);
-      write_o(o, acc, l_run, item, q_tiles, heads, row_in_tile, tq, osb, osh, oss);
+      write_o(o, lse, acc, l_run, m_run, item, q_tiles, heads, row_in_tile, tq, osb, osh, oss);
     }
   }
 }
@@ -353,9 +366,10 @@ int encode_qkv(CUtensorMap* map, const void* base, int B, int heads, int S, long
 
 // q, k, v, o: bf16 [B, heads, S, 64] with the given element strides (the
 // last dim contiguous, the others multiples of 8, the bases 16-byte
-// aligned). S must be a multiple of S_MULTIPLE.
-extern "C" int dsg_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                   int heads, int S, int head_dim,
+// aligned). S must be a multiple of S_MULTIPLE. lse: null, or f32
+// [B, heads, S] contiguous for the rows' log-sum-exp.
+extern "C" int dsg_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int heads, int S, int head_dim,
                                    long long qsb, long long qsh, long long qss,
                                    long long ksb, long long ksh, long long kss,
                                    long long vsb, long long vsh, long long vss,
@@ -378,7 +392,7 @@ extern "C" int dsg_flash_attention(const void* q, const void* k, const void* v, 
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(items < ctas ? items : ctas);
   flash_attention_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)o, S, heads, (int)items, q_order, k_order, v_order,
-      osb, osh, oss, scale * 1.4426950408889634f);
+      q_map, k_map, v_map, (__nv_bfloat16*)o, (float*)lse, S, heads, (int)items, q_order,
+      k_order, v_order, osb, osh, oss, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

@@ -62,6 +62,8 @@
 // Shared memory: 2 x 60 KB activated halos + 2 x 23 KB raw halos +
 // W_STAGES x BN x 128 B weights (3 stages at BN = 128, 7 at BN = 64),
 // ~215 KB of the 227 KB a CTA may use. Per-shape times: PERF.md.
+//
+// SASS must hold: HGMMA UTMALDG
 
 #include "hopper.cuh"
 

@@ -20,6 +20,15 @@ ResnetBlock, norm_out and the mid-block attention run the hand-written
 kernels (drivescenegen_torch/ops); on a CPU tensor, their plain versions.
 `plain=True` runs the plain versions on any device — the comparison for
 the kernels on the card, never the sampling path.
+
+`for_training=True` is the arm the train step differentiates. The GN+SiLU
+kernels have no backward, in the JAX package either (its config.py:79-80),
+so this arm runs every GN+SiLU+conv pair and norm_out as the composition
+JAX trains with (drivescenegen_tpu/models/unet2d.py:224-227, :249-254):
+GroupNorm in f32, SiLU, a cast, the conv. The attention runs its kernel
+forward and backward (ops.AttentionFunction). The arm is a constructor
+argument, not nn.Module.training, which defaults to True and would turn
+the sampling kernels off unasked.
 """
 
 from __future__ import annotations
@@ -55,18 +64,22 @@ def _param(shape, device) -> nn.Parameter:
 
 class _Params(nn.Module):
     """f32 parameters, cast to the activation dtype at use as flax's
-    promote_dtype does. The cast copy (conv weights channels-last, the
-    layout cuDNN and the fused conv kernel read) is kept until the parameter
-    changes: sampling is inference only, and re-casting 56 M weights on
-    every forward would cost more than several kernels."""
+    promote_dtype does (conv weights channels-last, the layout cuDNN and the
+    fused conv kernel read). Without autograd (no grad mode, or a parameter
+    that needs none) the cast copy is kept until the parameter changes:
+    sampling is inference only, and re-casting 56 M weights on every
+    forward would cost more than several kernels. With autograd the cast is
+    made anew, so that the gradient reaches the f32 parameter."""
 
     def cast(self, name: str, dtype: torch.dtype) -> torch.Tensor:
         p = getattr(self, name)
+        fmt = torch.channels_last if p.dim() == 4 else torch.contiguous_format
+        if torch.is_grad_enabled() and p.requires_grad:
+            return p.to(dtype=dtype, memory_format=fmt)
         key = (p._version, p.data_ptr(), dtype)
         casts = self.__dict__.setdefault("_casts", {})
         hit = casts.get(name)
         if hit is None or hit[0] != key:
-            fmt = torch.channels_last if p.dim() == 4 else torch.contiguous_format
             hit = (key, p.detach().to(dtype=dtype, memory_format=fmt))
             casts[name] = hit
         return hit[1]
@@ -120,6 +133,13 @@ def conv_module(x, conv: Conv2d, stride: int = 1, pad=None):
     return conv_nhwc(x, conv.cast("weight", x.dtype), conv.cast("bias", x.dtype), stride, pad)
 
 
+def group_norm_silu_nhwc(x, norm: Norm, groups: int):
+    """silu(GroupNorm(x)) over NHWC x, the norm in f32, returned in x's
+    dtype: the composition the training arm differentiates."""
+    h = F.group_norm(x.permute(0, 3, 1, 2).float(), groups, norm.weight, norm.bias, eps=GN_EPS)
+    return F.silu(h).to(x.dtype).permute(0, 2, 3, 1)
+
+
 def _same_pad(n: int, k: int = 3, s: int = 2):
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
@@ -143,9 +163,10 @@ class ResnetBlock(nn.Module):
     statistics fold jointly across the boundary, and conv1/shortcut split
     their kernels along the input channels."""
 
-    def __init__(self, cin: int, cout: int, temb_dim: int, groups: int, plain: bool, device=None):
+    def __init__(self, cin: int, cout: int, temb_dim: int, groups: int, plain: bool,
+                 for_training: bool = False, device=None):
         super().__init__()
-        self.groups, self.plain = groups, plain
+        self.groups, self.plain, self.for_training = groups, plain, for_training
         self.norm1 = Norm(cin, device)
         self.conv1 = Conv2d(cin, cout, 3, device)
         self.time_proj = Dense(temb_dim, cout, device)
@@ -155,6 +176,8 @@ class ResnetBlock(nn.Module):
             self.shortcut = Conv2d(cin, cout, 1, device)
 
     def _gn_conv(self, x, norm: Norm, conv: Conv2d):
+        if self.for_training:
+            return conv_module(group_norm_silu_nhwc(x, norm, self.groups), conv)
         fn = ops.reference_gn_silu_conv3x3 if self.plain else ops.gn_silu_conv3x3
         return fn(x.contiguous(), norm.weight, norm.bias, conv.cast("weight", x.dtype),
                   conv.bias, self.groups, GN_EPS)
@@ -184,7 +207,8 @@ class ResnetBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """Spatial self-attention over H*W tokens with a fused qkv projection
-    and a residual add (diffusers Attention in UNetMidBlock2D)."""
+    and a residual add (diffusers Attention in UNetMidBlock2D). Under
+    autograd ops.attention runs its Function: kernels forward and backward."""
 
     def __init__(self, channels: int, head_dim: int, groups: int, plain: bool, device=None):
         super().__init__()
@@ -288,7 +312,8 @@ class UNet2D(nn.Module):
 
     x: [B, H, W, C_in] NHWC; t: [B] or scalar integer timesteps; cond:
     optional [B, H, W, C_cond], concatenated to the input (zeros when None
-    and cfg.cond_channels > 0).
+    and cfg.cond_channels > 0). for_training selects the arm the train step
+    differentiates (module docstring); the default is the sampling arm.
 
     Weights are drawn at construction from `generator` (flax-like init:
     lecun-normal kernels, zero biases, unit norm scales); pass a seeded
@@ -296,7 +321,7 @@ class UNet2D(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", plain: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, for_training: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -304,7 +329,7 @@ class UNet2D(nn.Module):
         ch = tuple(cfg.block_out_channels)
         groups = cfg.norm_num_groups
         temb = ch[0] * 4
-        kw = dict(groups=groups, plain=plain, device=device)
+        kw = dict(groups=groups, plain=plain, for_training=for_training, device=device)
 
         self.time_mlp = TimeMLP(ch[0], temb, device)
         self.conv_in = Conv2d(cfg.in_channels + cfg.cond_channels, ch[0], 3, device)
@@ -331,7 +356,7 @@ class UNet2D(nn.Module):
                 self.add_module(f"up_{i}_upsample", Upsample(c, device))
         self.norm_out = Norm(ch[0], device)
         self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, device)
-        self.plain = plain
+        self.plain, self.for_training = plain, for_training
         if device.type != "meta":
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
@@ -388,7 +413,11 @@ class UNet2D(nn.Module):
             if i != n - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
 
-        gn = ops.reference_group_norm_silu if self.plain else ops.group_norm_silu
-        h = gn(h.contiguous(), self.norm_out.weight, self.norm_out.bias, cfg.norm_num_groups, GN_EPS)
+        if self.for_training:
+            h = group_norm_silu_nhwc(h, self.norm_out, cfg.norm_num_groups)
+        else:
+            gn = ops.reference_group_norm_silu if self.plain else ops.group_norm_silu
+            h = gn(h.contiguous(), self.norm_out.weight, self.norm_out.bias, cfg.norm_num_groups,
+                   GN_EPS)
         h = conv_module(h, self.conv_out)
         return h.float()

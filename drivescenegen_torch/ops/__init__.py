@@ -2,7 +2,17 @@
 its hand-written Hopper kernel on a CUDA tensor, counting launches in
 `<wrapper>.launches`."""
 
-from drivescenegen_torch.ops.attention import attention, reference_attention  # noqa: F401
+from drivescenegen_torch.ops.attention import (  # noqa: F401
+    AttentionFunction,
+    attention,
+    attention_bwd,
+    attention_bwd_dkv,
+    attention_bwd_dq,
+    attention_with_lse,
+    reference_attention,
+    reference_attention_bwd,
+    reference_attention_lse,
+)
 from drivescenegen_torch.ops.gn_silu_conv import (  # noqa: F401
     gn_silu_conv3x3,
     reference_gn_silu_conv3x3,
@@ -19,8 +29,10 @@ from drivescenegen_torch.ops.group_norm import (  # noqa: F401
     silu_affine,
 )
 
-# Every kernel wrapper on the sampling path, for counting launches.
-KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention)
+# Every kernel wrapper, for counting launches: the sampling path's four,
+# then the attention backward's two (the training path).
+KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention, attention_bwd_dq,
+                   attention_bwd_dkv)
 
 
 def reset_launch_counts() -> None:

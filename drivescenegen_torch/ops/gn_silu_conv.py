@@ -14,7 +14,9 @@ does the rest, so the activation never goes to device memory. It is bound by the
 cores at every UNet shape; see the source for the design.
 
 On a CPU tensor `silu_conv3x3` runs its plain version; on a CUDA tensor it
-launches the kernel or raises. `silu_conv3x3.launches` counts launches.
+launches the kernel or raises. It has no backward, as the Pallas kernel has
+none: under autograd it raises on either device. `silu_conv3x3.launches`
+counts launches.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from drivescenegen_torch.ops import build
 from drivescenegen_torch.ops.group_norm import (
     _device_kind,
     gn_mul_add,
+    no_backward,
     reference_gn_mul_add,
 )
 
@@ -73,7 +76,9 @@ def _lib():
 
 def silu_conv3x3(x, mul, add, weight, conv_bias):
     """conv3x3_SAME(silu(x*mul + add)) + conv_bias over NHWC x with
-    per-(b, c) f32 mul/add and an OIHW [Co, C, 3, 3] weight."""
+    per-(b, c) f32 mul/add and an OIHW [Co, C, 3, 3] weight. No backward
+    (no_backward)."""
+    no_backward("silu_conv3x3", x, mul, add, weight, conv_bias)
     if _device_kind(x) == "cpu":
         return reference_silu_conv3x3(x, mul, add, weight, conv_bias)
     B, H, W, C = x.shape
@@ -111,6 +116,7 @@ silu_conv3x3.launches = 0
 
 def gn_silu_conv3x3(x, scale, bias, weight, conv_bias, groups=32, eps=1e-6):
     """conv3x3(silu(GroupNorm(x)*scale + bias)) + conv_bias, SAME padding,
-    NHWC: the stats kernel, then the fused conv kernel."""
+    NHWC: the stats kernel, then the fused conv kernel. No backward."""
+    no_backward("gn_silu_conv3x3", x, scale, bias, weight, conv_bias)
     mul, add = gn_mul_add(x, scale, bias, groups, eps)
     return silu_conv3x3(x, mul, add, weight, conv_bias)

@@ -27,8 +27,9 @@ output once. gn_mul_add is also the stats pass of the fused conv
 group matmul are lane artifacts with nothing to do here.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises. Each wrapper counts its launches in
-`<wrapper>.launches`.
+launches its kernel or raises. Neither has a backward: under autograd
+(grad mode on, an input requiring grad) both raise on either device.
+Each wrapper counts its launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
@@ -43,6 +44,20 @@ def _device_kind(x: torch.Tensor) -> str:
     if x.device.type in ("cpu", "cuda"):
         return x.device.type
     raise RuntimeError(f"unsupported device {x.device}: expected cpu or cuda")
+
+
+_GN_HINT = ("nor do the JAX package's GN kernels, drivescenegen_tpu/config.py:79-80; "
+            "train with UNet2D(for_training=True)")
+
+
+def no_backward(what: str, *inputs, hint: str = _GN_HINT) -> None:
+    """Raise if autograd would need a gradient through `what`: it has no
+    backward, so it must not return a tensor that silently has none. Nor
+    does the JAX package differentiate its Pallas GN kernels
+    (drivescenegen_tpu/config.py:79-80); UNet2D(for_training=True) runs the
+    plain composition instead, as JAX trains."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(f"{what} has no backward ({hint}): call it under torch.no_grad()")
 
 
 def _bshape(x: torch.Tensor) -> Tuple[int, ...]:
@@ -229,7 +244,9 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
 
 def gn_mul_add(x, scale, bias, groups: int = 32, eps: float = 1e-6):
     """Per-(batch, channel) f32 (mul, add) of GroupNorm folded with scale and
-    bias. Triton stats kernel on CUDA, reference_gn_mul_add on CPU."""
+    bias. Triton stats kernel on CUDA, reference_gn_mul_add on CPU; no
+    backward (no_backward)."""
+    no_backward("gn_mul_add", x, scale, bias)
     if _device_kind(x) == "cpu":
         return reference_gn_mul_add(x, scale, bias, groups, eps)
     _check_cuda_input(x, "gn_mul_add")
@@ -267,7 +284,9 @@ gn_mul_add.launches = 0
 
 def silu_affine(x, mul, add):
     """silu(x*mul + add) with per-(batch, channel) f32 mul/add, in x's dtype.
-    Triton apply kernel on CUDA, reference_silu_affine on CPU."""
+    Triton apply kernel on CUDA, reference_silu_affine on CPU; no backward
+    (no_backward)."""
+    no_backward("silu_affine", x, mul, add)
     if _device_kind(x) == "cpu":
         return reference_silu_affine(x, mul, add)
     _check_cuda_input(x, "silu_affine")
@@ -294,5 +313,6 @@ silu_affine.launches = 0
 
 def group_norm_silu(x, scale, bias, groups: int = 32, eps: float = 1e-6):
     """silu(GroupNorm(x)*scale + bias): the stats kernel then the apply
-    kernel on CUDA, their plain versions on CPU."""
+    kernel on CUDA, their plain versions on CPU. No backward."""
+    no_backward("group_norm_silu", x, scale, bias)
     return silu_affine(x, *gn_mul_add(x, scale, bias, groups, eps))

@@ -1,0 +1,169 @@
+"""Training step for the DDPM UNet (port of
+drivescenegen_tpu/training/trainer.py:36-156).
+
+Per step, as the JAX step: noise ~ N(0, I), t ~ U[0, T), x_t =
+add_noise(x0, noise, t); loss = MSE(model(x_t, t), noise) in f32;
+gradients clipped to a global norm; AdamW with a linear-warmup cosine
+learning rate; optionally an EMA of the parameters with a decay warmup.
+
+optax is matched operation for operation, not just nearly:
+- `clip_by_global_norm` scales by max/norm only when norm >= max, with no
+  epsilon (torch's clip_grad_norm_ adds 1e-6), as (g / norm) * max;
+- `adamw` is scale_by_adam, add_decayed_weights, scale_by_learning_rate:
+  the same update as torch.optim.AdamW's decoupled weight decay;
+- `warmup_cosine_decay_schedule(0, peak, warmup, decay_steps, 0)` in f32,
+  evaluated at the step count before the update, so the first step's lr
+  is 0; decay_steps includes the warmup;
+- the EMA decay is min(d, (1 + s) / (10 + s)) with s = step + 1.
+
+The model is a UNet2D(for_training=True): bf16 activations over f32
+parameters, the attention's forward and backward kernels on the card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from drivescenegen_torch.config import TrainConfig
+from drivescenegen_torch.diffusion.schedule import DiffusionSchedule
+from drivescenegen_torch.models.unet2d import UNet2D
+from drivescenegen_torch.utils import prng
+
+
+@dataclass
+class TrainState:
+    model: UNet2D
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    # EMA of the parameters by state-dict name (None when disabled).
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+
+def lr_schedule_fn(cfg: TrainConfig, total_steps: int) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule(init_value=0, peak_value=lr,
+    warmup_steps, decay_steps=max(total_steps, warmup + 1), end_value=0),
+    in f32 as optax computes it."""
+    f32 = np.float32
+    peak, warmup = f32(cfg.learning_rate), cfg.lr_warmup_steps
+    decay = max(total_steps, warmup + 1) - warmup
+
+    def lr(count: int) -> float:
+        if count < warmup:
+            frac = f32(1) - f32(min(max(count, 0), warmup)) / f32(warmup)
+            return float((f32(0) - peak) * frac + peak)
+        c = f32(min(count - warmup, decay))
+        return float(peak * (f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay)))))
+
+    return lr
+
+
+def create_optimizer(cfg: TrainConfig, total_steps: int, params
+                     ) -> Tuple[torch.optim.Optimizer, Callable[[int], float]]:
+    """AdamW over `params` and its learning-rate schedule; the train step
+    sets the lr of the step before each update."""
+    opt = torch.optim.AdamW(params, lr=0.0, betas=(cfg.adam_b1, cfg.adam_b2), eps=cfg.adam_eps,
+                            weight_decay=cfg.weight_decay)
+    return opt, lr_schedule_fn(cfg, total_steps)
+
+
+def init_train_state(model: UNet2D, optimizer: torch.optim.Optimizer, ema: bool = False
+                     ) -> TrainState:
+    ema_params = None
+    if ema:
+        ema_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return TrainState(model=model, optimizer=optimizer, step=0, ema_params=ema_params)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, norm: torch.Tensor) -> None:
+    """optax.clip_by_global_norm in place: g unchanged when norm < max,
+    else (g / norm) * max. No host sync: both factors are 1 when the norm
+    is under the max."""
+    keep = norm < max_norm
+    one = torch.ones((), device=norm.device, dtype=norm.dtype)
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+
+
+def normalize_batch(batch: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] -> f32 [-1, 1] as x / 127.5 - 1 (exact for 8-bit
+    sources); other batches are taken as already normalized."""
+    if batch.dtype == torch.uint8:
+        return batch.float() / 127.5 - 1.0
+    return batch.float()
+
+
+def diffusion_loss(model: UNet2D, schedule: DiffusionSchedule, target: torch.Tensor,
+                   noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """MSE between the model's eps at x_t = add_noise(target, noise, t) and
+    the noise, in f32."""
+    eps_hat = model(schedule.add_noise(target, noise, t), t)
+    return torch.mean((eps_hat.float() - noise) ** 2)
+
+
+def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], float],
+                    cfg: TrainConfig) -> Callable:
+    """Returns step(state, batch, noise=None, t=None) -> (state, metrics).
+
+    `batch` is [B, H, W, C] uint8 (normalized on the device) or float in
+    [-1, 1]. `noise` and `t` are drawn from the step's generator
+    (utils/prng.py: the run's "train" seed folded with the step) when not
+    given; tests hand in the JAX step's own draws. The state is updated in
+    place; metrics are loss, grad_norm (before clipping; both device
+    tensors, read without a host sync) and lr."""
+    train_seed = prng.purpose_seed(cfg.seed, "train")
+    ema_decay = np.float32(cfg.ema_decay)
+
+    def train_step(state: TrainState, batch: torch.Tensor, noise=None, t=None):
+        model, opt = state.model, state.optimizer
+        mcfg = model.cfg
+        if mcfg.cond_channels > 0:
+            raise NotImplementedError(
+                "conditional training (cond_channels > 0, diffusion/cfg.py cond-dropout) comes "
+                "with the next slice of the port")
+        if mcfg.dropout > 0.0:
+            raise NotImplementedError("dropout > 0 comes with a later slice of the port")
+        device = schedule.device
+        target = normalize_batch(batch.to(device))
+        B = target.shape[0]
+        if noise is None or t is None:
+            gen = prng.for_step(train_seed, state.step, device)
+            if noise is None:
+                noise = torch.randn(target.shape, generator=gen, device=device)
+            if t is None:
+                t = torch.randint(0, schedule.num_train_timesteps, (B,), generator=gen,
+                                  device=device)
+        noise = noise.to(device=device, dtype=torch.float32)
+        t = t.to(device=device, dtype=torch.int64)
+
+        opt.zero_grad(set_to_none=True)
+        loss = diffusion_loss(model, schedule, target, noise, t)
+        loss.backward()
+        params = [p for group in opt.param_groups for p in group["params"]]
+        grads = [p.grad for p in params]
+        norm = global_norm(grads)
+        clip_by_global_norm_(grads, cfg.grad_clip_norm, norm)
+        lr = lr_schedule(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        if ema_decay > 0 and state.ema_params is not None:
+            s = np.float32(state.step) + np.float32(1)
+            decay = min(ema_decay, (np.float32(1) + s) / (np.float32(10) + s))
+            ema = list(state.ema_params.values())
+            named = dict(model.named_parameters())
+            torch._foreach_mul_(ema, float(decay))
+            torch._foreach_add_(ema, [named[n].detach() for n in state.ema_params],
+                                alpha=float(np.float32(1) - decay))
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": norm, "lr": lr}
+
+    return train_step
