@@ -9,8 +9,7 @@ Phases, each printed as it runs; any failure exits non-zero:
                ptxas's register/spill report; cuobjdump's SASS of each CUDA
                library must hold what its source states on its line
                "// SASS must hold:" (wgmma and TMA loads, HGMMA and UTMALDG,
-               for the forward kernels; mma.sync and ldmatrix, HMMA and
-               LDSM, for the attention backward)
+               in every library)
   3. kernels   every kernel on the sampling path against its plain PyTorch
                version, at every shape the full-width UNet gives it
                (batch 8, 256x256; models/unet2d.py conv3x3_shapes and
@@ -29,11 +28,13 @@ Phases, each printed as it runs; any failure exits non-zero:
   6. cli       the generation CLI on a model directory written from the
                same weights (config.yaml + params.npz)
   7. train     the training path at full width (batch 14, default
-               TrainConfig, EMA on): the attention backward kernels against
-               their plain version at [14, 8, 1024, 64] and at a ragged
-               shape, the forward's lse against torch.logsumexp, two runs
-               bit-identical, times against the bound, the plain version and
-               SDPA's backward; one train step with kernels against one with
+               TrainConfig, EMA on): the attention backward (pre-pass, one
+               main pass, dQ pass) against its plain version at
+               [14, 8, 1024, 64] and at a ragged shape, each launch against
+               its own plain version, the forward's lse against
+               torch.logsumexp, two runs bit-identical, times against the
+               bound, the plain version and SDPA's backward, and TFLOP/s on
+               the five products; one train step with kernels against one with
                plain versions on the same weights, batch, noise and t; the
                launch counts and ms of a run of steps, samples/s, the
                device's idle share and peak memory; then the train CLI as a
@@ -539,7 +540,8 @@ def main() -> int:
     counts = ops.launch_counts()
     print(f"DDIM-{STEPS}: {dt:.3f} s, {B / dt:.4f} scenes/s; launches {counts}")
     want = {"silu_conv3x3": 44 * STEPS, "gn_mul_add": 45 * STEPS, "silu_affine": STEPS,
-            "attention": STEPS, "attention_bwd_dq": 0, "attention_bwd_dkv": 0}
+            "attention": STEPS, "attention_bwd_prep": 0, "attention_bwd_main": 0,
+            "attention_bwd_dq": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     # The eager loop launches every kernel from the host, whose cores the
     # machine shares: two more runs show the spread, and the CUDA-graph
@@ -611,20 +613,42 @@ def main() -> int:
     label = f"[{TB},{heads},{S},{hd}]"
     got = ops.attention_bwd(q, k, v, o, lse, do, sc)
     ref = ops.reference_attention_bwd(q, k, v, o, lse, do, sc)
-    errs = {}
     for name, a_, b_ in zip(("dq", "dk", "dv"), got, ref):
-        errs[name] = err_of(a_, b_)
-        e, m = errs[name]
+        e, m = err_of(a_, b_)
         print(f"attention_bwd {label} {name}: err {e:.3g} (max {m:.3g}, tol {BF16_TOL * m:.3g})")
         check(e <= BF16_TOL * m, f"attention_bwd {label} {name}: err {e} vs max {m}")
     again = ops.attention_bwd(q, k, v, o, lse, do, sc)
     same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
     print(f"attention_bwd {label}: two runs bit-identical: {same}")
     check(same, "attention_bwd is not deterministic")
-    di = torch.empty_like(lse)
-    dq_ms = time_ms(lambda: ops.attention_bwd_dq(q, k, v, o, do, lse, di, sc))
-    dkv_ms = time_ms(lambda: ops.attention_bwd_dkv(q, k, v, do, lse, di, sc))
+    # Each launch against its own plain version on the same inputs: the
+    # pre-pass's di (f32 sums); the main pass's dk, dv and f32 dQ
+    # accumulator (dq before its scale, in the kernel's fragment order)
+    # given that di; the dQ pass on that accumulator.
+    di, sems = ops.attention_bwd_prep(o, do)
+    di_ref = ops.reference_attention_di(o, do)
+    e_di, m_di = err_of(di, di_ref)
+    check(e_di <= F32_TOL * max(m_di, 1.0), f"attention_bwd_prep di: err {e_di} vs max {m_di}")
+    e_main, m_main = 0.0, 0.0
+    main_out = ops.attention_bwd_main(q, k, v, do, lse, di, sems, sc)
+    main_ref = ops.reference_attention_bwd_main(q, k, v, do, lse, di_ref, sc)
+    for name, a_, b_ in zip(("dk", "dv", "acc"), main_out, main_ref):
+        e, m = err_of(a_, b_)
+        check(e <= BF16_TOL * m, f"attention_bwd_main {name}: err {e} vs max {m}")
+        e_main, m_main = max(e_main, e), max(m_main, m)
+    acc = main_out[2]
+    e_dq, m_dq = err_of(ops.attention_bwd_dq(acc, sc), ops.reference_attention_bwd_dq(acc, sc))
+    check(e_dq <= BF16_TOL * m_dq, f"attention_bwd_dq: err {e_dq} vs max {m_dq}")
+    print(f"attention_bwd {label} per launch: pre-pass di err {e_di:.3g} (max {m_di:.3g}), main "
+          f"pass dk/dv/acc err {e_main:.3g} (max {m_main:.3g}), dQ pass err {e_dq:.3g} (max "
+          f"{m_dq:.3g})")
+    prep_ms = time_ms(lambda: ops.attention_bwd_prep(o, do))
+    main_ms = time_ms(lambda: ops.attention_bwd_main(q, k, v, do, lse, di, sems, sc))
+    dq_ms = time_ms(lambda: ops.attention_bwd_dq(acc, sc))
+    bwd_ms = time_ms(lambda: ops.attention_bwd(q, k, v, o, lse, do, sc))
     plain_ms = time_ms(lambda: ops.reference_attention_bwd(q, k, v, o, lse, do, sc), graph=False)
+    di_plain_ms = time_ms(lambda: ops.reference_attention_di(o, do))
+    dq_plain_ms = time_ms(lambda: ops.reference_attention_bwd_dq(acc, sc))
     # Library yardstick: SDPA's backward alone (PyTorch picks its backend;
     # the forward is excluded), by device time: its host enqueue is about
     # as long as its device time, so an eager loop would time the host.
@@ -633,36 +657,39 @@ def main() -> int:
     lib_ms = device_ms(lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), do, retain_graph=True))
     lib_name = sdpa_out.grad_fn.name()
     del ql, kl, vl, sdpa_out
-    # Bounds: per (batch, head) a product is 2 S^2 D FLOP. The dQ kernel's
-    # function needs S, dP and dQ (3), the dK/dV kernel's S, dP, dV and dK
-    # (4); the backward as a whole 5, as S and dP are shared.
+    # Bounds: per (batch, head) a product is 2 S^2 D FLOP, and the backward
+    # needs five (S, dP, dV, dK, dQ), all in the main pass, which reads q,
+    # k, v, dO, lse and di and writes dk, dv and the f32 accumulator. The
+    # pre- and dQ passes move bytes: o and dO in, di (and the semaphores)
+    # out; the accumulator in, dq out.
     prod = 2 * TB * heads * S * S * hd
-    elems = TB * heads * S * hd
-    bnd_dq = bound_ms(5 * elems * 2 + TB * heads * S * 4 + elems * 2 + TB * heads * S * 4,
-                      3 * prod)
-    bnd_dkv = bound_ms(4 * elems * 2 + 2 * TB * heads * S * 4 + 2 * elems * 2, 4 * prod)
-    bnd_all = bound_ms(5 * elems * 2 + TB * heads * S * 4 + 3 * elems * 2, 5 * prod)
-    rows["attention_bwd_dq"] = KernelRow(
-        "attention_bwd_dq", "cuda", "drivescenegen_torch/csrc/flash_attention_bwd.cu",
-        "jax/experimental/pallas/ops/tpu/flash_attention.py:1287")
-    rows["attention_bwd_dkv"] = KernelRow(
-        "attention_bwd_dkv", "cuda", "drivescenegen_torch/csrc/flash_attention_bwd.cu",
-        "jax/experimental/pallas/ops/tpu/flash_attention.py:941")
-    # plain_ms and library_ms of both rows are the whole backward's: no
-    # plain or library call computes dq alone, or dk and dv alone.
-    rows["attention_bwd_dq"].add(1, errs["dq"][0], errs["dq"][1], dq_ms, plain_ms, bnd_dq, lib_ms)
-    e_kv = max(errs["dk"][0], errs["dv"][0])
-    m_kv = max(errs["dk"][1], errs["dv"][1])
-    rows["attention_bwd_dkv"].add(1, e_kv, m_kv, dkv_ms, plain_ms, bnd_dkv, lib_ms)
-    for row in (rows["attention_bwd_dq"], rows["attention_bwd_dkv"]):
-        row.d["yardsticks_cover"] = "dq, dk and dv together (plain_ms, library_ms)"
-    print(f"attention_bwd {label}: dQ kernel {dq_ms:.4f} ms ({3 * prod / dq_ms / 1e9:.1f} "
-          f"TFLOP/s, bound {bnd_dq[0]:.4f}), dK/dV kernel {dkv_ms:.4f} ms "
-          f"({4 * prod / dkv_ms / 1e9:.1f} TFLOP/s, bound {bnd_dkv[0]:.4f}); both "
-          f"{dq_ms + dkv_ms:.4f} ms against the backward's bound {bnd_all[0]:.4f} ms "
-          f"({bnd_all[1]}), SDPA backward ({lib_name}, device time) {lib_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
-    del qkv, q, k, v, do, o, lse, got, ref, again, di
+    elems, rows_ = TB * heads * S * hd, TB * heads * S
+    bnd_prep = bound_ms(2 * elems * 2 + rows_ * 4 + rows_ // 64 * 4, 2 * elems)
+    bnd_main = bound_ms(4 * elems * 2 + 2 * rows_ * 4 + 2 * elems * 2 + elems * 4, 5 * prod)
+    bnd_dq = bound_ms(elems * 4 + elems * 2, elems)
+    bnd_all = bound_ms(5 * elems * 2 + rows_ * 4 + 3 * elems * 2, 5 * prod)
+    lib_file = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    src = "drivescenegen_torch/csrc/flash_attention_bwd.cu"
+    rows["attention_bwd_prep"] = KernelRow("attention_bwd_prep", "cuda", src, f"{lib_file}:273")
+    rows["attention_bwd_main"] = KernelRow("attention_bwd_main", "cuda", src, f"{lib_file}:941")
+    rows["attention_bwd_dq"] = KernelRow("attention_bwd_dq", "cuda", src, f"{lib_file}:1287")
+    rows["attention_bwd_prep"].add(1, e_di, m_di, prep_ms, di_plain_ms, bnd_prep)
+    # plain_ms and library_ms of the main row are the whole backward's: no
+    # plain or library call computes its outputs alone.
+    rows["attention_bwd_main"].add(1, e_main, m_main, main_ms, plain_ms, bnd_main, lib_ms)
+    rows["attention_bwd_main"].d["also_replaces"] = f"{lib_file}:1287 (dQ's products)"
+    rows["attention_bwd_main"].d["yardsticks_cover"] = (
+        "the whole backward, all three launches (plain_ms, library_ms)")
+    rows["attention_bwd_dq"].add(1, e_dq, m_dq, dq_ms, dq_plain_ms, bnd_dq)
+    print(f"attention_bwd {label}: pre-pass {prep_ms:.4f} ms (bound {bnd_prep[0]:.4f}, "
+          f"{bnd_prep[1]}), main pass {main_ms:.4f} ms ({5 * prod / main_ms / 1e9:.1f} TFLOP/s, "
+          f"bound {bnd_main[0]:.4f}, {bnd_main[1]}), dQ pass {dq_ms:.4f} ms (bound "
+          f"{bnd_dq[0]:.4f}, {bnd_dq[1]}); the three {prep_ms + main_ms + dq_ms:.4f} ms, one "
+          f"attention_bwd call {bwd_ms:.4f} ms ({5 * prod / bwd_ms / 1e9:.1f} TFLOP/s on the five "
+          f"products) against the backward's bound {bnd_all[0]:.4f} ms ({bnd_all[1]}), SDPA "
+          f"backward ({lib_name}, device time) {lib_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    del qkv, q, k, v, do, o, lse, got, ref, again, di, sems, main_out, main_ref, acc
+
     # Ragged, checked and not timed: other batch and heads, the smallest S
     # the backward takes (o and lse from the plain forward: the forward
     # kernel needs S % 128), and a dO whose last dim is not contiguous.
@@ -679,6 +706,24 @@ def main() -> int:
               f"{tuple(do.stride())}): err {e:.3g} (max {m:.3g})")
         check(e <= BF16_TOL * m, f"attention_bwd ragged {name}: err {e} vs max {m}")
     del q, k, v, do, o, lse, got, ref
+    # More 128-key tiles than the main pass has CTAs (one per SM): it then
+    # sums dQ in key-tile order instead of the rotated walk. Two runs must
+    # still agree bit for bit.
+    s_long = 128 * (torch.cuda.get_device_properties(0).multi_processor_count + 2)
+    q, k, v, do = (randn(1, 1, s_long, hd).bfloat16() for _ in range(4))
+    o, lse = ops.attention_with_lse(q, k, v, sc)
+    got = ops.attention_bwd(q, k, v, o, lse, do, sc)
+    ref = ops.reference_attention_bwd(q, k, v, o, lse, do, sc)
+    for name, a_, b_ in zip(("dq", "dk", "dv"), got, ref):
+        e, m = err_of(a_, b_)
+        print(f"attention_bwd [1,1,{s_long},{hd}] {name} (key tiles > CTAs): err {e:.3g} "
+              f"(max {m:.3g})")
+        check(e <= BF16_TOL * m, f"attention_bwd S={s_long} {name}: err {e} vs max {m}")
+    again = ops.attention_bwd(q, k, v, o, lse, do, sc)
+    check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+          f"attention_bwd S={s_long} is not deterministic")
+    del q, k, v, do, o, lse, got, ref, again
+    torch.cuda.empty_cache()
 
     # 7b: one full-width train step with kernels against one with plain
     # versions, same weights, batch, noise and t.
@@ -724,7 +769,7 @@ def main() -> int:
     check(abs(gk - gp) <= TRAIN_GNORM_TOL * abs(gp), "train step grad_norm differs")
     check(cos >= TRAIN_COS_MIN, f"train step gradient cosine {cos}")
     want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
-             "attention_bwd_dq": 1, "attention_bwd_dkv": 1}
+             "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1}
     check(ck == want1, f"launches in one kernel train step {ck} != {want1}")
     check(set(cp.values()) == {0}, f"the plain step launched kernels: {cp}")
     del results, fk, fp
@@ -791,7 +836,8 @@ def main() -> int:
         check(latest_step(os.path.join(out_dir, "checkpoints")) == CLI_STEPS,
               "train CLI: no checkpoint at its last step")
         launched = logged_launches(log)
-        check(launched["attention_bwd_dq"] == CLI_STEPS == launched["attention_bwd_dkv"],
+        check(all(launched[name] == CLI_STEPS for name in
+                  ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq")),
               f"train CLI launches {launched}")
         log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI_RESUME_STEPS),
                              "--resume"])
@@ -817,7 +863,9 @@ def main() -> int:
                                   "train_step_ms": step_ms,
                                   "train_samples_per_s": TB / med_ms * 1e3,
                                   "train_device_idle": idle, "train_peak_memory_gb": peak_gb,
-                                  "attention_bwd_ms": dq_ms + dkv_ms,
+                                  "attention_bwd_ms": bwd_ms,
+                                  "attention_bwd_parts_ms": [prep_ms, main_ms, dq_ms],
+                                  "attention_bwd_tflops": 5 * prod / bwd_ms / 1e9,
                                   "attention_bwd_bound_ms": bnd_all[0],
                                   "attention_bwd_sdpa_ms": lib_ms,
                                   "attention_bwd_plain_ms": plain_ms,

@@ -238,22 +238,14 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
       RingPos<KV_STAGES> pos;
       for (int item = blockIdx.x; item < items; item += gridDim.x, qp.next()) {
         const int qt = item % q_tiles, h = (item / q_tiles) % heads, b = item / (q_tiles * heads);
-        // Coordinates of the 4D maps: dim 0 is d, dims 1..3 are (s, head,
-        // batch) in the order of increasing stride that the host chose.
-        auto coords = [&](int4 order, int s) {
-          int c[4] = {0, 0, 0, 0};
-          c[order.x] = s;
-          c[order.y] = h;
-          c[order.z] = b;
-          return make_int4(c[0], c[1], c[2], c[3]);
-        };
-        const int4 cq = coords(q_order, qt * BQ);
+        const int4 cq = heads_coords(q_order, qt * BQ, h, b);
         mbar_wait(&sm.q_empty[qp.stage], qp.phase ^ 1u);
         mbar_arrive_expect_tx(&sm.q_full[qp.stage], Q_BYTES);
         tma_load_4d(sm.q[qp.stage], &q_map, &sm.q_full[qp.stage], 0, cq.y, cq.z, cq.w);
         for (int j = 0; j < n_tiles; ++j, pos.next()) {
           mbar_wait(&sm.empty[pos.stage], pos.phase ^ 1u);
-          const int4 ck = coords(k_order, j * BKV), cv = coords(v_order, j * BKV);
+          const int4 ck = heads_coords(k_order, j * BKV, h, b);
+          const int4 cv = heads_coords(v_order, j * BKV, h, b);
           mbar_arrive_expect_tx(&sm.k_full[pos.stage], KV_BYTES);
           tma_load_4d(sm.k[pos.stage], &k_map, &sm.k_full[pos.stage], 0, ck.y, ck.z, ck.w);
           mbar_arrive_expect_tx(&sm.v_full[pos.stage], KV_BYTES);
@@ -334,34 +326,6 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// A 4D map over a [B, heads, S, 64] view: dim 0 is d (contiguous), dims
-// 1..3 are s, head and batch sorted by increasing stride, as TMA walks
-// them. `order` receives the map dim (1..3) of s, head and batch.
-int encode_qkv(CUtensorMap* map, const void* base, int B, int heads, int S, long long sb,
-               long long sh, long long ss, int box_s, int4* order) {
-  const long long stride[3] = {ss, sh, sb};
-  const int extent[3] = {S, heads, B};
-  int idx[3] = {0, 1, 2};
-  for (int i = 0; i < 3; ++i)
-    for (int j = i + 1; j < 3; ++j)
-      if (stride[idx[j]] < stride[idx[i]]) {
-        const int t = idx[i];
-        idx[i] = idx[j];
-        idx[j] = t;
-      }
-  uint64_t dims[4] = {(uint64_t)D, 0, 0, 0}, strides[3];
-  uint32_t box[4] = {(uint32_t)D, 1, 1, 1};
-  int where[3];
-  for (int i = 0; i < 3; ++i) {
-    dims[i + 1] = (uint64_t)extent[idx[i]];
-    strides[i] = (uint64_t)stride[idx[i]] * 2;
-    if (idx[i] == 0) box[i + 1] = (uint32_t)box_s;
-    where[idx[i]] = i + 1;
-  }
-  *order = make_int4(where[0], where[1], where[2], 0);
-  return encode_bf16(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 }  // namespace
 
 // q, k, v, o: bf16 [B, heads, S, 64] with the given element strides (the
@@ -380,9 +344,9 @@ extern "C" int dsg_flash_attention(const void* q, const void* k, const void* v, 
   }
   CUtensorMap q_map, k_map, v_map;
   int4 q_order, k_order, v_order;
-  int err = encode_qkv(&q_map, q, B, heads, S, qsb, qsh, qss, BQ, &q_order);
-  if (!err) err = encode_qkv(&k_map, k, B, heads, S, ksb, ksh, kss, BKV, &k_order);
-  if (!err) err = encode_qkv(&v_map, v, B, heads, S, vsb, vsh, vss, BKV, &v_order);
+  int err = encode_heads(&q_map, q, B, heads, S, D, qsb, qsh, qss, BQ, &q_order);
+  if (!err) err = encode_heads(&k_map, k, B, heads, S, D, ksb, ksh, kss, BKV, &k_order);
+  if (!err) err = encode_heads(&v_map, v, B, heads, S, D, vsb, vsh, vss, BKV, &v_order);
   if (err) return err;
   static int sms_by_device[MAX_DEVICES];
   int ctas = 0;  // one per SM

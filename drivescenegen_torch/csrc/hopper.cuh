@@ -125,6 +125,88 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The coordinates (dims 1..3) of row s of (batch b, head h) in a map that
+// encode_heads made: `order` names the map dim of s, head and batch.
+__device__ __forceinline__ int4 heads_coords(int4 order, int s, int h, int b) {
+  int c[4] = {0, 0, 0, 0};
+  c[order.x] = s;
+  c[order.y] = h;
+  c[order.z] = b;
+  return make_int4(c[0], c[1], c[2], c[3]);
+}
+
+// ------------------------------------------------------------ bulk copies
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, counted on `bar` like a TMA load.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes from shared to global memory: stored, or added
+// as f32 (an atomic reduction in L2). Tracked by bulk groups.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::
+                   "l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N bulk groups are pending: with READ, until their
+// shared-memory sources have been read; without, until their writes are
+// done.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (READ) {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  } else {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+  }
+}
+
+// Orders global-memory accesses of the async proxy (bulk copies) against
+// the generic proxy's (a flag's store or load), in both directions.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ----------------------------------------------------- flags across CTAs
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Spins until *flag == want. As mbar_wait, a wait of more than 2^35 cycles
+// can only be a broken schedule and traps.
+__device__ __forceinline__ void flag_wait_eq(const int* flag, int want) {
+  if (ld_acquire(flag) == want) return;
+  const long long start = clock64();
+  while (ld_acquire(flag) != want) {
+    if (clock64() - start > (1LL << 35)) __trap();
+  }
+}
+
 // ----------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor for a bf16 operand in the 128-byte
@@ -204,16 +286,17 @@ __device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
 // register 4j + {0,1} is (row, column 8j + 2(t%4) + {0,1}), 4j + {2,3}
 // the same columns of row + 8 (the m16n8 layout, repeated along N).
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory.
-template <int TRANS_B>
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory
+// (TRANS_A: A stored MN-major, read as the transpose flag reads B).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                                    int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A and B from shared memory.
@@ -297,6 +380,36 @@ inline int encode_bf16(CUtensorMap* map, const void* base, int rank, const uint6
                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 4D map over a bf16 [B, heads, S, head_dim] view (element strides sb,
+// sh, ss; head_dim * 2 = 128 bytes, one swizzled line) with boxes of box_s
+// rows: dim 0 is d (contiguous), dims 1..3 are s, head and batch sorted by
+// increasing stride, as TMA walks them. `order` receives the map dim
+// (1..3) of s, head and batch, for heads_coords.
+inline int encode_heads(CUtensorMap* map, const void* base, int B, int heads, int S, int head_dim,
+                        long long sb, long long sh, long long ss, int box_s, int4* order) {
+  const long long stride[3] = {ss, sh, sb};
+  const int extent[3] = {S, heads, B};
+  int idx[3] = {0, 1, 2};
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (stride[idx[j]] < stride[idx[i]]) {
+        const int t = idx[i];
+        idx[i] = idx[j];
+        idx[j] = t;
+      }
+  uint64_t dims[4] = {(uint64_t)head_dim, 0, 0, 0}, strides[3];
+  uint32_t box[4] = {(uint32_t)head_dim, 1, 1, 1};
+  int where[3];
+  for (int i = 0; i < 3; ++i) {
+    dims[i + 1] = (uint64_t)extent[idx[i]];
+    strides[i] = (uint64_t)stride[idx[i]] * 2;
+    if (idx[i] == 0) box[i + 1] = (uint32_t)box_s;
+    where[idx[i]] = i + 1;
+  }
+  *order = make_int4(where[0], where[1], where[2], 0);
+  return encode_bf16(map, base, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 constexpr int MAX_DEVICES = 64;

@@ -6,11 +6,17 @@ from drivescenegen_torch.ops.attention import (  # noqa: F401
     AttentionFunction,
     attention,
     attention_bwd,
-    attention_bwd_dkv,
     attention_bwd_dq,
+    attention_bwd_main,
+    attention_bwd_prep,
     attention_with_lse,
+    dq_from_fragment_order,
+    dq_to_fragment_order,
     reference_attention,
     reference_attention_bwd,
+    reference_attention_bwd_dq,
+    reference_attention_bwd_main,
+    reference_attention_di,
     reference_attention_lse,
 )
 from drivescenegen_torch.ops.gn_silu_conv import (  # noqa: F401
@@ -30,9 +36,9 @@ from drivescenegen_torch.ops.group_norm import (  # noqa: F401
 )
 
 # Every kernel wrapper, for counting launches: the sampling path's four,
-# then the attention backward's two (the training path).
-KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention, attention_bwd_dq,
-                   attention_bwd_dkv)
+# then the attention backward's three (the training path).
+KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention, attention_bwd_prep,
+                   attention_bwd_main, attention_bwd_dq)
 
 
 def reset_launch_counts() -> None:

@@ -14,9 +14,12 @@ The forward kernel (csrc/flash_attention.cu) keeps the logits in registers
 with an online softmax and streams K and V by TMA into wgmma; with an lse
 buffer it also stores each row's log-sum-exp, the residual the backward
 needs (the library saves l and m, flash_attention.py:248-251). The
-backward kernels (csrc/flash_attention_bwd.cu) recompute P from q, k and
-lse: one launch per query tile writes dQ and di = rowsum(o * dO), one per
-key tile writes dK and dV; no atomics, so the result is deterministic.
+backward (csrc/flash_attention_bwd.cu) is three launches: a pre-pass for
+di = rowsum(o * dO) (the library's jnp step, :273); one pass over
+(128-key tile, head, batch) items that recomputes P from q, k and lse,
+writes dK and dV, and sums each query tile's dQ over the key tiles into an
+f32 accumulator in a fixed order, so the result is deterministic; and a
+dQ pass that scales the accumulator into dq.
 
 `attention` runs the plain version on a CPU tensor and launches the kernel
 on a CUDA tensor, or raises. When grad mode is on and an input requires
@@ -66,16 +69,63 @@ def reference_attention_bwd(q, k, v, o, lse, do, scale: float):
 
     P and dS are rounded to the input dtype before their products, as the
     kernels round them to bf16. Returns (dq, dk, dv) in the input dtypes."""
+    dq, dk, dv = _reference_bwd(q, k, v, lse, reference_attention_di(o, do), do, scale)
+    return (dq * scale).to(q.dtype), dk, dv
+
+
+def reference_attention_di(o, do):
+    """di = rowsum(o * do) [B, heads, S] in f32 (f64 for f64 inputs): the
+    backward's pre-pass."""
+    acc = _acc_dtype(o)
+    return (o.to(acc) * do.to(acc)).sum(dim=-1)
+
+
+def _reference_bwd(q, k, v, lse, di, do, scale: float):
+    """(dS k in f32 or f64, dk, dv) given di: dq before its scale."""
     acc = _acc_dtype(q)
     qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
     p = torch.exp(_logits(q, k, scale) - lse.to(acc)[..., None])
-    di = (o.to(acc) * dof).sum(dim=-1)
     dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).to(acc), dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    ds = (p * (dp - di[..., None])).to(q.dtype).to(acc)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    ds = (p * (dp - di.to(acc)[..., None])).to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+# The main pass leaves dQ in the order its dQ warpgroup holds it: per
+# 64-query tile, float4 j of thread t (warp w = t // 32, lane 4g + tq) at
+# j * 128 + t, holding rows 16w + g and 16w + g + 8, columns 8j + 2tq and
+# 8j + 2tq + 1 (wgmma's accumulator layout). As dims of a [64, 64] tile:
+# rows (w, r, g), columns (j, tq, e); stored (j, w, g, tq, r, e).
+_TILE_ROWS_COLS = (4, 2, 8, 8, 4, 2)  # w, r, g, j, tq, e
+
+
+def dq_to_fragment_order(x: torch.Tensor) -> torch.Tensor:
+    """[B, heads, S, 64] -> [B, heads, S / 64, 4096] in the main pass's
+    fragment order."""
+    B, Hh, S, D = x.shape
+    t = x.reshape(B, Hh, S // 64, *_TILE_ROWS_COLS)
+    return t.permute(0, 1, 2, 6, 3, 5, 7, 4, 8).reshape(B, Hh, S // 64, 64 * D)
+
+
+def dq_from_fragment_order(acc: torch.Tensor) -> torch.Tensor:
+    """The inverse of dq_to_fragment_order."""
+    B, Hh, tiles, n = acc.shape
+    t = acc.reshape(B, Hh, tiles, 8, 4, 8, 4, 2, 2)  # j, w, g, tq, r, e
+    return t.permute(0, 1, 2, 4, 7, 5, 3, 6, 8).reshape(B, Hh, tiles * 64, n // 64)
+
+
+def reference_attention_bwd_main(q, k, v, do, lse, di, scale: float):
+    """(dk, dv, acc): the main pass's outputs given di, acc = dq / scale in
+    f32 and fragment order."""
+    dq, dk, dv = _reference_bwd(q, k, v, lse, di, do, scale)
+    return dk, dv, dq_to_fragment_order(dq.float())
+
+
+def reference_attention_bwd_dq(acc, scale: float):
+    """dq = bf16(acc * scale), [B, heads, S, 64]: the dQ pass."""
+    return (dq_from_fragment_order(acc) * scale).to(torch.bfloat16)
 
 
 def attention_shape_error(S: int, D: int):
@@ -98,14 +148,15 @@ def attention_bwd_shape_error(S: int, D: int):
     return None
 
 
-def _entry(lib_name: str, fn_name: str, n_ptr: int, n_strides: int):
+def _entry(lib_name: str, fn_name: str, n_ptr: int, n_strides: int, with_scale: bool = True):
     lib = build.load(lib_name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        # (pointers..., B, heads, S, head_dim, element strides..., scale,
+        # (pointers..., B, heads, S, head_dim, element strides..., [scale,]
         # stream) -> cudaError_t
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * n_strides + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_longlong] * n_strides
+                       + [ctypes.c_float] * with_scale + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -129,6 +180,10 @@ def _heads_view(B, S, heads, D, device):
     return torch.empty((B, S, heads, D), device=device, dtype=torch.bfloat16).transpose(1, 2)
 
 
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _attention_kernel(q, k, v, scale: float, with_lse: bool):
     B, Hh, S, D = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -139,11 +194,10 @@ def _attention_kernel(q, k, v, scale: float, with_lse: bool):
     fn = _entry("flash_attention", "dsg_flash_attention", 5, 12)
     out = _heads_view(B, S, Hh, D, q.device)
     lse = torch.empty((B, Hh, S), device=q.device, dtype=torch.float32) if with_lse else None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    None if lse is None else lse.data_ptr(), B, Hh, S, D,
                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-                   float(scale), stream), "attention")
+                   float(scale), _stream(q)), "attention")
     attention.launches += 1
     return out, lse
 
@@ -197,9 +251,10 @@ attention.launches = 0
 
 def attention_bwd(q, k, v, o, lse, do, scale: float):
     """(dq, dk, dv) of attention from the forward's q, k, v, output o and
-    lse ([B, heads, S] f32) and the output's gradient do. On CUDA: the dQ
-    kernel, then the dK/dV kernel; do of any layout is copied to one they
-    read. On CPU: reference_attention_bwd."""
+    lse ([B, heads, S] f32) and the output's gradient do. On CUDA: the
+    pre-pass, the main pass and the dQ pass, in that order on the current
+    stream; do of any layout is copied to one they read. On CPU:
+    reference_attention_bwd."""
     if _device_kind(q) == "cpu":
         return reference_attention_bwd(q, k, v, o, lse, do, scale)
     B, Hh, S, D = q.shape
@@ -209,49 +264,74 @@ def attention_bwd(q, k, v, o, lse, do, scale: float):
         do = do.clone(memory_format=torch.contiguous_format)  # fresh, so aligned too
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         _check_view(name, t, q, "attention_bwd")
-    if lse.shape != (B, Hh, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"attention_bwd: lse must be contiguous f32 [{B}, {Hh}, {S}]")
+    if (lse.shape != (B, Hh, S) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.data_ptr() % 16):
+        raise ValueError(f"attention_bwd: lse must be contiguous 16-byte aligned f32 "
+                         f"[{B}, {Hh}, {S}]")
     if lse.device != q.device:
         raise ValueError(f"attention_bwd: lse must be on {q.device}")
     why = attention_bwd_shape_error(S, D)
     if why:
         raise ValueError(f"attention_bwd: {why}")
-    di = torch.empty((B, Hh, S), device=q.device, dtype=torch.float32)
-    dq = attention_bwd_dq(q, k, v, o, do, lse, di, scale)
-    dk, dv = attention_bwd_dkv(q, k, v, do, lse, di, scale)
-    return dq, dk, dv
+    di, sems = attention_bwd_prep(o, do)
+    dk, dv, acc = attention_bwd_main(q, k, v, do, lse, di, sems, scale)
+    return attention_bwd_dq(acc, scale), dk, dv
 
 
-def attention_bwd_dq(q, k, v, o, do, lse, di, scale: float):
-    """The dQ kernel alone, on inputs attention_bwd has checked: returns dq
-    and writes di = rowsum(o * do) into `di` for attention_bwd_dkv."""
+def attention_bwd_prep(o, do):
+    """The pre-pass alone, on inputs attention_bwd has checked: (di, sems),
+    di = rowsum(o * do) f32 [B, heads, S] and the main pass's dQ semaphores
+    (int32, one per 64-query tile) zeroed. On CPU: reference_attention_di
+    and zeros."""
+    B, Hh, S, D = o.shape
+    if _device_kind(o) == "cpu":
+        return reference_attention_di(o, do), torch.zeros(B * Hh * S // 64, dtype=torch.int32)
+    fn = _entry("flash_attention_bwd", "dsg_flash_attention_bwd_prep", 4, 6, with_scale=False)
+    di = torch.empty((B, Hh, S), device=o.device, dtype=torch.float32)
+    sems = torch.empty(B * Hh * S // 64, device=o.device, dtype=torch.int32)
+    build.check(fn(o.data_ptr(), do.data_ptr(), di.data_ptr(), sems.data_ptr(), B, Hh, S, D,
+                   *o.stride()[:3], *do.stride()[:3], _stream(o)), "attention_bwd_prep")
+    attention_bwd_prep.launches += 1
+    return di, sems
+
+
+attention_bwd_prep.launches = 0
+
+
+def attention_bwd_main(q, k, v, do, lse, di, sems, scale: float):
+    """The main pass alone, after attention_bwd_prep: (dk, dv, acc), acc
+    the f32 dq / scale in the fragment order of dq_to_fragment_order. On
+    CPU: reference_attention_bwd_main."""
     B, Hh, S, D = q.shape
-    fn = _entry("flash_attention_bwd", "dsg_flash_attention_bwd_dq", 8, 18)
-    dq = _heads_view(B, S, Hh, D, q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                   lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, Hh, S, D,
-                   *(s for t in (q, k, v, o, do, dq) for s in t.stride()[:3]),
-                   float(scale), stream), "attention_bwd_dq")
+    if _device_kind(q) == "cpu":
+        return reference_attention_bwd_main(q, k, v, do, lse, di, scale)
+    fn = _entry("flash_attention_bwd", "dsg_flash_attention_bwd", 10, 18)
+    dk, dv = _heads_view(B, S, Hh, D, q.device), _heads_view(B, S, Hh, D, q.device)
+    acc = torch.empty((B, Hh, S // 64, 64 * D), device=q.device, dtype=torch.float32)
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                   di.data_ptr(), acc.data_ptr(), sems.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   B, Hh, S, D, *(s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]),
+                   float(scale), _stream(q)), "attention_bwd_main")
+    attention_bwd_main.launches += 1
+    return dk, dv, acc
+
+
+attention_bwd_main.launches = 0
+
+
+def attention_bwd_dq(acc, scale: float):
+    """The dQ pass alone: dq = bf16(acc * scale), a [B, heads, S, 64] view
+    of a [B, S, heads, 64] buffer. On CPU: reference_attention_bwd_dq."""
+    if _device_kind(acc) == "cpu":
+        return reference_attention_bwd_dq(acc, scale)
+    B, Hh, tiles, n = acc.shape
+    S, D = tiles * 64, n // 64
+    fn = _entry("flash_attention_bwd", "dsg_flash_attention_bwd_dq", 2, 3)
+    dq = _heads_view(B, S, Hh, D, acc.device)
+    build.check(fn(acc.data_ptr(), dq.data_ptr(), B, Hh, S, D, *dq.stride()[:3], float(scale),
+                   _stream(acc)), "attention_bwd_dq")
     attention_bwd_dq.launches += 1
     return dq
 
 
 attention_bwd_dq.launches = 0
-
-
-def attention_bwd_dkv(q, k, v, do, lse, di, scale: float):
-    """The dK/dV kernel alone, reading the di that attention_bwd_dq wrote."""
-    B, Hh, S, D = q.shape
-    fn = _entry("flash_attention_bwd", "dsg_flash_attention_bwd_dkv", 8, 18)
-    dk, dv = _heads_view(B, S, Hh, D, q.device), _heads_view(B, S, Hh, D, q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                   di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hh, S, D,
-                   *(s for t in (q, k, v, do, dk, dv) for s in t.stride()[:3]),
-                   float(scale), stream), "attention_bwd_dkv")
-    attention_bwd_dkv.launches += 1
-    return dk, dv
-
-
-attention_bwd_dkv.launches = 0

@@ -112,7 +112,7 @@ def source_int(name: str, constant: str) -> int:
 def sass_must_hold(name: str) -> tuple:
     """The SASS instructions that csrc/<name>.cu states its library must
     contain, from its line `// SASS must hold: OP OP ...` (HGMMA and
-    UTMALDG for a wgmma kernel fed by TMA, HMMA for mma.sync)."""
+    UTMALDG for a wgmma kernel fed by TMA)."""
     src = (CSRC_DIR / f"{name}.cu").read_text()
     found = re.findall(r"^// SASS must hold: ([A-Z0-9 ]+)$", src, re.MULTILINE)
     if len(found) != 1:

@@ -154,6 +154,9 @@ def test_attention_block_grads_match_jax(rng):
         assert np.abs(got.numpy() - want).max() <= 1e-4 * max(np.abs(want).max(), 1.0)
 
 
+BWD_COUNTS = ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq")
+
+
 def test_attention_bwd_wrapper_runs_plain_on_cpu_and_counts_nothing():
     ops.reset_launch_counts()
     q, k, v, do = (_t(a) for a in _qkv(6))
@@ -161,7 +164,65 @@ def test_attention_bwd_wrapper_runs_plain_on_cpu_and_counts_nothing():
     got = ops.attention_bwd(q, k, v, o, lse, do, 0.5)
     want = ops.reference_attention_bwd(q, k, v, o, lse, do, 0.5)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert set(ops.launch_counts().values()) == {0}
+    counts = ops.launch_counts()
+    assert all(name in counts for name in BWD_COUNTS)
+    assert set(counts.values()) == {0}
+
+
+# ------------------------------------- the backward's three passes (CPU)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 64, 64), (2, 1, 192, 64)])
+def test_dq_fragment_order_round_trips(shape):
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=shape).astype(np.float32))
+    acc = ops.dq_to_fragment_order(x)
+    assert acc.shape == (shape[0], shape[1], shape[2] // 64, 4096)
+    assert torch.equal(ops.dq_from_fragment_order(acc), x)
+
+
+def test_dq_fragment_order_is_the_wgmma_accumulator_layout():
+    """Element e4 of float4 j of thread t (warp w, lane 4g + tq) is row
+    16w + g + 8 (e4 // 2), column 8j + 2tq + e4 % 2 of the 64 x 64 tile,
+    as the main pass stores its accumulator and dq_kernel reads it."""
+    acc = torch.arange(4096, dtype=torch.float32).reshape(1, 1, 1, 4096)
+    tile = ops.dq_from_fragment_order(acc)[0, 0]
+    for j, t, e4 in ((0, 0, 0), (3, 37, 1), (7, 127, 3), (5, 66, 2)):
+        w, g, tq = t // 32, (t % 32) // 4, t % 4
+        row, col = 16 * w + g + 8 * (e4 // 2), 8 * j + 2 * tq + e4 % 2
+        assert tile[row, col].item() == (j * 128 + t) * 4 + e4
+
+
+@pytest.mark.parametrize("seed,shape", [(8, (1, 2, 128, 64)), (9, (2, 1, 64, 64))])
+def test_bwd_passes_chained_match_vjp_of_library_reference(seed, shape):
+    """The pre-pass, main pass and dQ pass that attention_bwd launches on
+    CUDA, chained through their plain versions, against jax.vjp of the
+    library's plain attention; none counts a launch on the CPU."""
+    ops.reset_launch_counts()
+    q, k, v, do = _qkv(seed, shape)
+    scale = 0.125
+    tq, tk, tv, tdo = (_t(a) for a in (q, k, v, do))
+    o = ops.reference_attention(tq, tk, tv, scale)
+    lse = ops.reference_attention_lse(tq, tk, scale)
+    di, sems = ops.attention_bwd_prep(o, tdo)
+    assert sems.dtype == torch.int32 and sems.numel() == shape[0] * shape[1] * shape[2] // 64
+    assert not sems.any()
+    dk, dv, acc = ops.attention_bwd_main(tq, tk, tv, tdo, lse, di, sems, scale)
+    dq = ops.attention_bwd_dq(acc, scale)
+    _, vjp = jax.vjp(lambda a, b, c: mha_reference_no_custom_vjp(a, b, c, None, sm_scale=scale),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    # dq comes back in bf16, as the kernel writes it: 2^-9 relative per
+    # element, within 2^-7 of the largest.
+    _close([dq.float().numpy()], [want[0]], rel=2.0 ** -7)
+    _close([dk.numpy(), dv.numpy()], want[1:])
+    assert all(ops.launch_counts()[name] == 0 for name in BWD_COUNTS)
+
+
+def test_pre_pass_di_is_the_rowsum_of_o_times_do():
+    o, do = (_t(a) for a in _qkv(11)[:2])
+    want = np.einsum("bhsd,bhsd->bhs", o.numpy().astype(np.float64), do.numpy().astype(np.float64))
+    np.testing.assert_allclose(ops.reference_attention_di(o, do).numpy(), want, rtol=1e-5,
+                               atol=1e-5)
 
 
 # ------------------------------------------------ repairs for training

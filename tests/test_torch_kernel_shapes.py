@@ -17,7 +17,7 @@ from drivescenegen_torch.models import UNet2D
 from drivescenegen_torch.models.unet2d import conv3x3_shapes, mid_attention_shape
 from drivescenegen_torch.ops import build
 from drivescenegen_torch.ops import gn_silu_conv as gn_silu_conv_mod
-from drivescenegen_torch.ops.attention import attention_shape_error
+from drivescenegen_torch.ops.attention import attention_bwd_shape_error, attention_shape_error
 from drivescenegen_torch.ops.gn_silu_conv import conv_shape_error
 
 TINY = dict(sample_size=16, block_out_channels=(8, 16), layers_per_block=1,
@@ -110,6 +110,29 @@ def test_conv_limits_reject_what_the_kernel_cannot_take(C, Co):
 @pytest.mark.parametrize("S,D", [(1024, 32), (1024, 128), (64, 64), (1000, 64)])
 def test_attention_limits_reject_what_the_kernel_cannot_take(S, D):
     assert attention_shape_error(S, D) is not None
+
+
+def test_attention_bwd_limits_take_the_mid_attention_shape():
+    _, S, D = mid_attention_shape(ModelConfig())
+    assert (S, D) == (1024, 64)
+    assert attention_bwd_shape_error(S, D) is None
+
+
+@pytest.mark.parametrize("S,D", [(1024, 32), (1024, 128), (1000, 64)])
+def test_attention_bwd_limits_reject_what_the_kernel_cannot_take(S, D):
+    assert attention_bwd_shape_error(S, D) is not None
+
+
+def test_attention_bwd_limits_are_read_from_its_source():
+    """The backward takes every shape the forward takes, and the plain
+    decode of its dQ accumulator assumes 64-query tiles."""
+    assert build.source_int("flash_attention_bwd", "D") == mid_attention_shape(ModelConfig())[2]
+    fwd = build.source_int("flash_attention", "S_MULTIPLE")
+    bwd = build.source_int("flash_attention_bwd", "S_MULTIPLE")
+    assert fwd % bwd == 0
+    assert build.source_int("flash_attention_bwd", "BQ") == 64
+    assert attention_bwd_shape_error(bwd, 64) is None
+    assert attention_bwd_shape_error(bwd // 2, 64) is not None
 
 
 def test_limits_are_read_from_the_kernel_sources():
