@@ -8,16 +8,21 @@ Phases, each printed as it runs; any failure exits non-zero:
   2. build     nvcc builds csrc/*.cu from the checkout (all at once), with
                ptxas's register/spill report; cuobjdump's SASS of each CUDA
                library must hold what its source states on its line
-               "// SASS must hold:" (wgmma and TMA loads, HGMMA and UTMALDG,
-               in every library)
+               "// SASS must hold:" (HGMMA and UTMALDG, wgmma fed by TMA,
+               for the conv and the attention; 16-byte loads and the
+               arrival counter's atomic, LDG.E.128.CONSTANT and ATOMG, for
+               the GroupNorm stats)
   3. kernels   every kernel on the sampling path against its plain PyTorch
                version, at every shape the full-width UNet gives it
-               (batch 8, 256x256; models/unet2d.py conv3x3_shapes and
-               mid_attention_shape) and at ragged shapes: error against a
-               stated tolerance, kernel time, plain time, library time where
-               one PyTorch call computes the same function, and the least
-               time the card could take (bytes at 3.35 TB/s or bf16
-               operations at 989 TFLOP/s, whichever is larger)
+               (batch 8, 256x256; models/unet2d.py conv3x3_shapes,
+               gn_mul_add_shapes and mid_attention_shape) and at ragged
+               shapes: error against a stated tolerance, kernel time, plain
+               time, library time where one PyTorch call computes the same
+               function, and the least time the card could take (bytes at
+               3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever is
+               larger); for the GroupNorm stats also the variance clamp, two
+               calls and two CUDA-graph replays bit-identical, and one
+               device kernel per call
   4. forward   the full-width UNet2D (default widths, seeded random weights)
                with kernels against the same model with plain versions
   5. sampling  DDIM-50, batch 8, 256x256, eta 0: the launch counts of one
@@ -298,7 +303,8 @@ def main() -> int:
         from drivescenegen_torch.config import Config, ModelConfig, TrainConfig, save_config
         from drivescenegen_torch.diffusion import ddim_sample, make_schedule
         from drivescenegen_torch.models import UNet2D
-        from drivescenegen_torch.models.unet2d import conv3x3_shapes, mid_attention_shape
+        from drivescenegen_torch.models.unet2d import (conv3x3_shapes, gn_mul_add_shapes,
+                                                       mid_attention_shape)
         from drivescenegen_torch.models.convert import save_npz, torch_to_flax
         from drivescenegen_torch.ops import build
         from drivescenegen_torch.scripts import generation
@@ -309,6 +315,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e}); run it from the "
               f"repository root", file=sys.stderr)
         return 1
+    import numpy as np
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -354,7 +361,7 @@ def main() -> int:
     rows = {
         "silu_conv3x3": KernelRow("silu_conv3x3", "cuda", "drivescenegen_torch/csrc/gn_silu_conv.cu",
                                   "drivescenegen_tpu/ops/pallas/gn_silu_conv.py:150"),
-        "gn_mul_add": KernelRow("gn_mul_add", "triton", "drivescenegen_torch/ops/group_norm.py",
+        "gn_mul_add": KernelRow("gn_mul_add", "cuda", "drivescenegen_torch/csrc/group_norm.cu",
                                 "drivescenegen_tpu/ops/pallas/group_norm.py:39"),
         "silu_affine": KernelRow("silu_affine", "triton", "drivescenegen_torch/ops/group_norm.py",
                                  "drivescenegen_tpu/ops/pallas/group_norm.py:48"),
@@ -369,7 +376,10 @@ def main() -> int:
     def err_of(got, ref):
         return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
 
+    stats_seen = Counter()
+
     def check_stats(x, scale, bias, count, label):
+        stats_seen[(x.shape[1], x.shape[-1])] += count
         mul, add = ops.gn_mul_add(x, scale, bias, G, eps)
         rm, ra = ops.reference_gn_mul_add(x, scale, bias, G, eps)
         e1, m1 = err_of(mul, rm)
@@ -451,6 +461,86 @@ def main() -> int:
     rows["silu_affine"].add(1, err, ref_max, ms, plain, bnd)
     print(f"silu_affine   {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms, plain "
           f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
+    check(stats_seen == gn_mul_add_shapes(cfg),
+          f"gn_mul_add checked at {dict(stats_seen)}, the forward calls {gn_mul_add_shapes(cfg)}")
+
+    # GroupNorm stats, checked and not timed: ragged shapes (B = 1 and 3;
+    # C = 192, 768, 1024 and the widest the kernel takes; row counts that
+    # are not multiples of the THREADS / (C/8) rows a CTA reads per step;
+    # a single row), each called twice, which must agree bit for bit.
+    def stats_err(x, scale, bias, ref):
+        got = ops.gn_mul_add(x, scale, bias, G, eps)
+        again = ops.gn_mul_add(x, scale, bias, G, eps)
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+              f"gn_mul_add {tuple(x.shape)}: two calls differ")
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"gn_mul_add {tuple(x.shape)}: not finite")
+        (e1, m1), (e2, m2) = err_of(got[0], ref[0]), err_of(got[1], ref[1])
+        err, ref_max = max(e1, e2), max(m1, m2)
+        check(err <= F32_TOL * max(ref_max, 1.0), f"gn_mul_add {tuple(x.shape)}: err {err} vs max {ref_max}")
+        return err, ref_max
+
+    max_c = build.source_int("group_norm", "MAX_C")
+    for shp in ((1, 13, 17, 192), (3, 7, 29, 768), (3, 31, 31, 1024), (1, 1, 1, 64),
+                (2, 5, 3, max_c)):
+        C = shp[-1]
+        x = (randn(*shp) + 0.5).bfloat16()
+        scale, bias = 1.0 + randn(C, std=0.2), randn(C, std=0.1)
+        err, ref_max = stats_err(x, scale, bias, ops.reference_gn_mul_add(x, scale, bias, G, eps))
+        print(f"  gn_mul_add  {list(shp)} (ragged): err {err:.3g} (max {ref_max:.3g}); two calls "
+              f"bit-identical")
+    # |mean| >> std, where the one-pass variance comes out negative: every
+    # group of 1712 values (214 rows x 8 channels) holds 12 and one 12.125.
+    # The sums are exact in f32 in any order, so kernel and plain version
+    # compute the same variance, -1.5e-5 < -eps, and without the clamp
+    # rsqrt(var + eps) would be NaN. The plain version runs on the CPU here:
+    # on CUDA, torch divides by a scalar through its reciprocal, which
+    # rounds the mean otherwise than a division.
+    Bq, Nq, Cq = 3, 214, 256
+    rng = np.random.default_rng(20260916)
+    xn = np.full((Bq, Nq, Cq), 12.0, np.float32)
+    for b_ in range(Bq):
+        for g_ in range(G):
+            xn[b_, rng.integers(Nq), g_ * (Cq // G) + rng.integers(Cq // G)] = 12.125
+    xc = torch.from_numpy(xn).bfloat16().reshape(Bq, 2, Nq // 2, Cq)
+    sc_c, bi_c = 1.0 + 0.2 * torch.randn(Cq, generator=torch.Generator().manual_seed(1)), torch.zeros(Cq)
+    xf = xc.float().reshape(Bq, Nq, G, Cq // G)
+    count = Nq * (Cq // G)
+    mean_c = xf.sum(dim=(1, 3)) / count
+    var_c = (xf * xf).sum(dim=(1, 3)) / count - mean_c * mean_c
+    check(bool((var_c < -eps).all()), f"clamp case: one-pass variance {var_c.max().item()} not < -eps")
+    ref_c = tuple(t.to(dev) for t in ops.reference_gn_mul_add(xc, sc_c, bi_c, G, eps))
+    err, ref_max = stats_err(xc.to(dev), sc_c.to(dev), bi_c.to(dev), ref_c)
+    print(f"  gn_mul_add  [{Bq},2,{Nq // 2},{Cq}] (|mean| >> std, one-pass variance "
+          f"{var_c.max().item():.3g} in every group, clamped): err {err:.3g} (max {ref_max:.3g})")
+    # Two replays of one captured call agree with an eager call (the
+    # arrival counters are back at 0 after each launch), and one call is
+    # one device kernel: no memset, no second pass.
+    Hs, Cs = min(stats_seen)
+    x = randn(B, Hs, Hs, Cs).bfloat16()
+    scale, bias = 1.0 + randn(Cs, std=0.2), randn(Cs, std=0.1)
+    eager = ops.gn_mul_add(x, scale, bias, G, eps)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = ops.gn_mul_add(x, scale, bias, G, eps)
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in captured])
+    check(all(torch.equal(a_, b_) for r in replays for a_, b_ in zip(r, eager)),
+          "gn_mul_add: CUDA-graph replays differ from an eager call")
+    del graph, captured
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.gn_mul_add(x, scale, bias, G, eps)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    check(len(kernels) == 1 and kernels[0][1] == 1 and "gn_stats_kernel" in kernels[0][0],
+          f"one gn_mul_add call ran {kernels} on the device")
+    print(f"  gn_mul_add  [{B},{Hs},{Hs},{Cs}]: two CUDA-graph replays equal an eager call; "
+          f"one call is one device kernel ({kernels[0][0][:60]})")
+    del xc, eager, replays
 
     # Mid-block attention: q, k, v as strided views of the fused qkv output.
     heads, S, hd = mid_attention_shape(cfg)
@@ -573,8 +663,12 @@ def main() -> int:
         "attention": host_us(lambda: ops.attention(qs, qs, qs, 0.125)),
         "F.conv2d": host_us(lambda: F.conv2d(xs.permute(0, 3, 1, 2), ws, None, padding=1)),
         "bf16 add": host_us(lambda: xs + xs),
+        # What a wrapper pays to name the stream with the public call (the
+        # stats wrapper reads the raw handle instead).
+        "torch.cuda.current_stream": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
     }
-    print("host us per call: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    print("host us per call: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+          + f"; gn_mul_add at most silu_conv3x3: {host['gn_mul_add'] <= host['silu_conv3x3']}")
 
     # ---------------------------------------------------------------- 6
     phase("6 generation CLI")

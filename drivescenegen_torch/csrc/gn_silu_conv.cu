@@ -10,8 +10,9 @@
 //
 // with the conv's zero padding applied AFTER the activation: a tap outside
 // the image contributes 0, not silu(add). mul/add are the per-(b,c) f32
-// GroupNorm vectors from the Triton stats kernel (ops/group_norm.py
-// gn_mul_add); the sum is f32, conv_bias is added in f32, the output bf16.
+// GroupNorm vectors from the stats kernel (csrc/group_norm.cu, behind
+// ops/group_norm.py gn_mul_add); the sum is f32, conv_bias is added in
+// f32, the output bf16.
 //
 // GEMM view: M = B*H*W output pixels, N = Co, K = 9*C. At the UNet's shapes
 // (C 64..1024, Co 64..512) the tensor cores bound it (2*M*N*K operations

@@ -197,6 +197,18 @@ __device__ __forceinline__ void red_release_add(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
+// Adds v and returns the old value: a release of what this thread's CTA
+// wrote before (after a __syncthreads), and an acquire of what the earlier
+// adders released.
+__device__ __forceinline__ int atom_acq_rel_add(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
 // Spins until *flag == want. As mbar_wait, a wait of more than 2^35 cycles
 // can only be a broken schedule and traps.
 __device__ __forceinline__ void flag_wait_eq(const int* flag, int want) {

@@ -296,6 +296,17 @@ def conv3x3_shapes(cfg: ModelConfig) -> Counter:
     return shapes
 
 
+def gn_mul_add_shapes(cfg: ModelConfig) -> Counter:
+    """(H, C) of every GroupNorm stats call (ops.gn_mul_add) in one UNet2D
+    forward: the input of each GN+SiLU+conv3x3 call, then norm_out at the
+    full resolution."""
+    shapes = Counter()
+    for (H, C, _), n in conv3x3_shapes(cfg).items():
+        shapes[(H, C)] += n
+    shapes[(cfg.sample_size, cfg.block_out_channels[0])] += 1
+    return shapes
+
+
 def mid_attention_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
     """(heads, S, D) of the mid-block attention: S tokens of the lowest
     resolution, head dim D."""

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("gn_silu_conv", "flash_attention", "flash_attention_bwd")
+SOURCES = ("gn_silu_conv", "group_norm", "flash_attention", "flash_attention_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -112,9 +112,10 @@ def source_int(name: str, constant: str) -> int:
 def sass_must_hold(name: str) -> tuple:
     """The SASS instructions that csrc/<name>.cu states its library must
     contain, from its line `// SASS must hold: OP OP ...` (HGMMA and
-    UTMALDG for a wgmma kernel fed by TMA)."""
+    UTMALDG for a wgmma kernel fed by TMA; an opcode may carry its
+    modifiers, as in LDG.E.128)."""
     src = (CSRC_DIR / f"{name}.cu").read_text()
-    found = re.findall(r"^// SASS must hold: ([A-Z0-9 ]+)$", src, re.MULTILINE)
+    found = re.findall(r"^// SASS must hold: ([A-Z0-9. ]+)$", src, re.MULTILINE)
     if len(found) != 1:
         raise RuntimeError(f"csrc/{name}.cu has {len(found)} lines '// SASS must hold: ...'")
     return tuple(found[0].split())

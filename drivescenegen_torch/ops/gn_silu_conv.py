@@ -6,8 +6,9 @@ Replaces the Pallas TPU kernel `gn_silu_conv3x3`
     conv3x3_SAME(silu(GroupNorm(x)*scale + bias)) + conv_bias,  NHWC,
 
 with the conv's zero padding taken after the activation. As in the JAX
-code, the GroupNorm statistics are a separate pass: here the Triton stats
-kernel `gn_mul_add` (ops/group_norm.py) writes per-(b, c) f32 mul/add, and
+code, the GroupNorm statistics are a separate pass: here the CUDA stats
+kernel `gn_mul_add` (ops/group_norm.py, csrc/group_norm.cu) writes
+per-(b, c) f32 mul/add, and
 the CUDA kernel csrc/gn_silu_conv.cu (an implicit GEMM on wgmma fed by
 TMA, with the affine + SiLU applied to the A operand in shared memory)
 does the rest, so the activation never goes to device memory. It is bound by the tensor

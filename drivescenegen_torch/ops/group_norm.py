@@ -1,4 +1,5 @@
-"""GroupNorm + SiLU: two Triton kernels and their plain PyTorch versions.
+"""GroupNorm + SiLU: a CUDA stats kernel, a Triton apply kernel, and their
+plain PyTorch versions.
 
 Replaces the Pallas TPU kernel `fused_group_norm_silu`
 (drivescenegen_tpu/ops/pallas/group_norm.py:87-143, body `_kernel` :27-83).
@@ -6,19 +7,19 @@ That kernel walks its grid in order and carries per-channel sums in scratch
 memory from phase 0 (sums) to phase 1 (normalize). Hopper runs blocks in no
 order, so the port makes the two phases two launches:
 
-  gn_mul_add   (stats, phase 0): programs (batch, row split) read whole
-               NHWC rows (coalesced), sum each channel's values and squares
-               in f32 and write them to a [B, split, 2, C] workspace. The
-               last program of each batch item to finish (an atomic
-               counter) folds the splits, in a fixed order, into group
-               statistics and writes the per-(b, c) vectors
-               mul = rstd*scale, add = bias - mean*rstd*scale. The
-               one-pass variance is clamped at 0, as the JAX reference
-               paths do (group_norm.py:225); the Pallas kernel does not
-               clamp (:68), so on |mean| >> std the port follows the
-               references.
-  silu_affine  (apply, phase 1): silu(x*mul + add) in f32, stored in x's
-               dtype.
+  gn_mul_add   (stats, phase 0): csrc/group_norm.cu, one launch. CTAs over
+               (row range, batch item) stream NHWC rows with 16-byte loads,
+               sum each channel's values and squares in f32, and write them
+               to a workspace kept per device. The last CTA of each batch
+               item (an acq_rel counter, which it resets) folds the ranges,
+               in a fixed order, into group statistics and writes the
+               per-(b, c) vectors mul = rstd*scale, add = bias -
+               mean*rstd*scale. The one-pass variance is clamped at 0, as
+               the JAX reference paths do (group_norm.py:225); the Pallas
+               kernel does not clamp (:68), so on |mean| >> std the port
+               follows the references.
+  silu_affine  (apply, phase 1): Triton, silu(x*mul + add) in f32, stored
+               in x's dtype.
 
 Both are bound by bytes on the H100 (a few operations per element against
 ~295 FLOP/byte of balance): stats reads x once, apply reads x and writes the
@@ -34,10 +35,13 @@ Each wrapper counts its launches in `<wrapper>.launches`.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+
+from drivescenegen_torch.ops import build
 
 
 def _device_kind(x: torch.Tensor) -> str:
@@ -141,75 +145,14 @@ def reference_group_norm_silu_multi(
 
 
 # --------------------------------------------------------------------------
-# Triton kernels (triton is imported only when a kernel is launched).
+# Kernels: the CUDA stats kernel (csrc/group_norm.cu, built by ops/build.py)
+# and the Triton apply kernel (triton is imported only when it is launched).
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def gn_stats(x_ptr, scale_ptr, bias_ptr, mul_ptr, add_ptr, part_ptr, count_ptr,
-                 N, C, G, cpg, rows_per, split, eps,
-                 BLOCK_N: tl.constexpr, BLOCK_C: tl.constexpr, BLOCK_CF: tl.constexpr,
-                 BLOCK_GR: tl.constexpr, BLOCK_G: tl.constexpr, S_CHUNK: tl.constexpr):
-        b = tl.program_id(0)
-        s = tl.program_id(1)
-        x_b = x_ptr + b.to(tl.int64) * N * C
-        r0 = s * rows_per
-        r1 = tl.minimum(r0 + rows_per, N)
-        part_b = part_ptr + (b * split + s) * 2 * C  # workspace [B, split, 2, C]
-        for c0 in range(0, C, BLOCK_C):
-            cols = c0 + tl.arange(0, BLOCK_C)
-            cmask = cols < C
-            acc_s = tl.zeros([BLOCK_N, BLOCK_C], dtype=tl.float32)
-            acc_q = tl.zeros([BLOCK_N, BLOCK_C], dtype=tl.float32)
-            for n0 in range(r0, r1, BLOCK_N):
-                rows = n0 + tl.arange(0, BLOCK_N)
-                m = (rows[:, None] < r1) & cmask[None, :]
-                v = tl.load(x_b + rows[:, None].to(tl.int64) * C + cols[None, :],
-                            mask=m, other=0.0).to(tl.float32)
-                acc_s += v
-                acc_q += v * v
-            tl.store(part_b + cols, tl.sum(acc_s, axis=0), mask=cmask)
-            tl.store(part_b + C + cols, tl.sum(acc_q, axis=0), mask=cmask)
-        # The barrier orders this program's stores before its acq_rel
-        # atomic, so every program's partial sums are visible to the last
-        # one. That one reduces the splits per channel (contiguous loads, a
-        # fixed order), parks the totals in its batch item's first slot, and
-        # folds them into groups.
-        tl.debug_barrier()
-        done = tl.atomic_add(count_ptr + b, 1)
-        if done == split - 1:
-            cf = tl.arange(0, BLOCK_CF)
-            cfm = cf < C
-            tot_s = tl.zeros([BLOCK_CF], dtype=tl.float32)
-            tot_q = tl.zeros([BLOCK_CF], dtype=tl.float32)
-            for s0 in range(0, split, S_CHUNK):
-                si = s0 + tl.arange(0, S_CHUNK)
-                p = part_ptr + (b * split + si[:, None]) * 2 * C + cf[None, :]
-                m = (si[:, None] < split) & cfm[None, :]
-                tot_s += tl.sum(tl.load(p, mask=m, other=0.0, cache_modifier=".cg"), axis=0)
-                tot_q += tl.sum(tl.load(p + C, mask=m, other=0.0, cache_modifier=".cg"), axis=0)
-            tot = part_ptr + b * split * 2 * C
-            tl.store(tot + cf, tot_s, mask=cfm)
-            tl.store(tot + C + cf, tot_q, mask=cfm)
-            tl.debug_barrier()  # the totals are visible to the whole program
-            gi = tl.arange(0, BLOCK_GR)
-            gj = tl.arange(0, BLOCK_G)
-            ch = gi[:, None] * cpg + gj[None, :]
-            cm = (gi[:, None] < G) & (gj[None, :] < cpg)
-            gsum = tl.sum(tl.load(tot + ch, mask=cm, other=0.0, cache_modifier=".cg"), axis=1)
-            gsq = tl.sum(tl.load(tot + C + ch, mask=cm, other=0.0, cache_modifier=".cg"), axis=1)
-            count = N * cpg * 1.0  # also right where Triton made N or cpg a constant
-            mean = gsum / count
-            var = tl.maximum(gsq / count - mean * mean, 0.0)
-            inv = tl.rsqrt(var + eps)
-            sc = tl.load(scale_ptr + ch, mask=cm, other=0.0)
-            bi = tl.load(bias_ptr + ch, mask=cm, other=0.0)
-            tl.store(mul_ptr + b * C + ch, inv[:, None] * sc, mask=cm)
-            tl.store(add_ptr + b * C + ch, bi - (mean * inv)[:, None] * sc, mask=cm)
 
     @triton.jit
     def silu_affine(x_ptr, mul_ptr, add_ptr, out_ptr, N, C,
@@ -227,7 +170,7 @@ def _kernels():
         y = y * tl.sigmoid(y)
         tl.store(out_ptr + offs, y.to(out_ptr.dtype.element_ty), mask=m)
 
-    return triton, gn_stats, silu_affine
+    return triton, silu_affine
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,39 +185,93 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what}: unsupported dtype {x.dtype}")
 
 
+def stats_shape_error(C: int, groups: int):
+    """Why the stats kernel cannot take C channels in `groups` groups, or
+    None if it can. The limits are read from csrc/group_norm.cu."""
+    vec = build.source_int("group_norm", "VEC")
+    max_c = build.source_int("group_norm", "MAX_C")
+    if groups <= 0 or C % groups:
+        return f"{C} channels do not split into {groups} groups"
+    if C % vec or C > max_c:
+        return f"the kernel takes C % {vec} == 0 and C <= {max_c}, got C={C}"
+    return None
+
+
+def _lib():
+    lib = build.load("group_norm")
+    fn = lib.dsg_gn_mul_add
+    if fn.argtypes is None:
+        # (x, scale, bias, mul, add, work, work_floats, arrived, B, N, C, G, eps,
+        #  stream) -> cudaError_t
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+                       + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+# Per device, every (partials workspace f32, arrival counters int32) pair
+# allocated. The last is in use; the kernel leaves its counters at 0. The
+# earlier ones stay allocated, so that a CUDA graph captured before a
+# growth still replays on live memory. Calls on one device share the pair,
+# so they must be ordered (one stream at a time), as the sampling loop and
+# CUDA-graph replays are.
+_workspaces: Dict[int, List[Tuple[torch.Tensor, torch.Tensor]]] = {}
+
+
+def _workspace(device: torch.device, floats: int, batch: int):
+    pairs = _workspaces.setdefault(device.index, [])
+    if pairs and pairs[-1][0].numel() >= floats and pairs[-1][1].numel() >= batch:
+        return pairs[-1]
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("gn_mul_add: its workspace must grow for this shape, which cannot "
+                           "happen during CUDA graph capture; call it once at this shape first")
+    grown = [2 * t.numel() for t in pairs[-1]] if pairs else [0, 0]
+    work = torch.empty(max(floats, grown[0]), device=device, dtype=torch.float32)
+    arrived = torch.zeros(max(batch, grown[1]), device=device, dtype=torch.int32)
+    torch.cuda.synchronize(device)  # the zeros are in place for a launch on any stream
+    pairs.append((work, arrived))
+    return pairs[-1]
+
+
+def _f32_on(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """t as a contiguous f32 tensor on dev: t itself when it is one."""
+    if t.dtype == torch.float32 and t.device == dev and t.is_contiguous():
+        return t
+    return t.to(device=dev, dtype=torch.float32).contiguous()
+
+
 def gn_mul_add(x, scale, bias, groups: int = 32, eps: float = 1e-6):
     """Per-(batch, channel) f32 (mul, add) of GroupNorm folded with scale and
-    bias. Triton stats kernel on CUDA, reference_gn_mul_add on CPU; no
-    backward (no_backward)."""
+    bias. The CUDA stats kernel (one launch) on CUDA, reference_gn_mul_add on
+    CPU; no backward (no_backward)."""
     no_backward("gn_mul_add", x, scale, bias)
     if _device_kind(x) == "cpu":
         return reference_gn_mul_add(x, scale, bias, groups, eps)
-    _check_cuda_input(x, "gn_mul_add")
+    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.dim() < 2 or x.numel() == 0:
+        raise TypeError("gn_mul_add: x must be a non-empty contiguous bf16 [B, ..., C] on CUDA")
     B, C = x.shape[0], x.shape[-1]
-    if C % groups:
-        raise ValueError(f"gn_mul_add: {C} channels do not split into {groups} groups")
+    why = stats_shape_error(C, groups)
+    if why:
+        raise ValueError(f"gn_mul_add: {why}")
+    if tuple(scale.shape) != (C,) or tuple(bias.shape) != (C,):
+        raise ValueError(f"gn_mul_add: scale and bias must be [{C}]")
+    if x.data_ptr() % 16:
+        raise ValueError("gn_mul_add: x must be 16-byte aligned (16-byte loads)")
     N = x.numel() // (B * C)
-    cpg = C // groups
-    triton, kernel, _ = _kernels()
-    scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
-    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    mul = torch.empty((B, C), device=x.device, dtype=torch.float32)
+    dev = x.device
+    scale, bias = _f32_on(scale, dev), _f32_on(bias, dev)
+    mul = torch.empty((B, C), device=dev, dtype=torch.float32)
     add = torch.empty_like(mul)
-    block_c = min(triton.next_power_of_2(C), 256)
-    block_n = 4096 // block_c
-    # Up to four programs per SM, each reading at least 32K elements.
-    sms = _sm_count(x.device)
-    split = max(1, min(triton.cdiv(4 * sms, B), (N * C) // 32768))
-    rows_per = triton.cdiv(N, split)
-    split = triton.cdiv(N, rows_per)
-    part = torch.empty((B, split, 2, C), device=x.device, dtype=torch.float32)
-    done = torch.zeros((B,), device=x.device, dtype=torch.int32)
-    block_cf = triton.next_power_of_2(C)
-    kernel[(B, split)](x, scale, bias, mul, add, part, done, N, C, groups, cpg, rows_per,
-                       split, eps, BLOCK_N=block_n, BLOCK_C=block_c, BLOCK_CF=block_cf,
-                       BLOCK_GR=triton.next_power_of_2(groups),
-                       BLOCK_G=triton.next_power_of_2(cpg), S_CHUNK=max(1, 4096 // block_cf),
-                       num_warps=4)
+    # Enough for any grid the entry point picks: B x ranges <= CTAS_PER_SM x SMs + B.
+    ctas = build.source_int("group_norm", "CTAS_PER_SM") * _sm_count(dev)
+    work, arrived = _workspace(dev, 2 * C * (ctas + B), B)
+    # The current stream's raw handle, as Triton's launcher reads it:
+    # torch.cuda.current_stream builds a Stream object on every call, a
+    # cost the sampling loop pays 45 times a step.
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    build.check(_lib()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), mul.data_ptr(),
+                       add.data_ptr(), work.data_ptr(), work.numel(), arrived.data_ptr(), B, N,
+                       C, groups, eps, stream), "gn_mul_add")
     gn_mul_add.launches += 1
     return mul, add
 
@@ -296,7 +293,7 @@ def silu_affine(x, mul, add):
         raise ValueError(f"silu_affine: mul/add must be [{B}, {C}]")
     if mul.device != x.device or add.device != x.device:
         raise ValueError(f"silu_affine: mul/add must be on {x.device}")
-    triton, _, kernel = _kernels()
+    triton, kernel = _kernels()
     mul = mul.to(torch.float32).contiguous()
     add = add.to(torch.float32).contiguous()
     out = torch.empty_like(x)

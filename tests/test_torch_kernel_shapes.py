@@ -14,11 +14,14 @@ import torch
 from drivescenegen_torch import ops
 from drivescenegen_torch.config import ModelConfig
 from drivescenegen_torch.models import UNet2D
-from drivescenegen_torch.models.unet2d import conv3x3_shapes, mid_attention_shape
+from drivescenegen_torch.models.unet2d import (conv3x3_shapes, gn_mul_add_shapes,
+                                               mid_attention_shape)
 from drivescenegen_torch.ops import build
 from drivescenegen_torch.ops import gn_silu_conv as gn_silu_conv_mod
+from drivescenegen_torch.ops import group_norm as group_norm_mod
 from drivescenegen_torch.ops.attention import attention_bwd_shape_error, attention_shape_error
 from drivescenegen_torch.ops.gn_silu_conv import conv_shape_error
+from drivescenegen_torch.ops.group_norm import stats_shape_error
 
 TINY = dict(sample_size=16, block_out_channels=(8, 16), layers_per_block=1,
             norm_num_groups=2, attention_head_dim=8, dtype="float32")
@@ -74,6 +77,28 @@ def test_conv3x3_shapes_are_the_forward_calls(monkeypatch, name, plain):
 
 @pytest.mark.parametrize("plain", [True, False], ids=["plain", "wrapper"])
 @pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_gn_mul_add_shapes_are_the_forward_calls(monkeypatch, name, plain):
+    """plain=True records reference_gn_mul_add where the plain model's conv
+    pairs and norm_out call it; plain=False records the stats wrapper
+    gn_mul_add that gn_silu_conv3x3 and group_norm_silu launch."""
+    cfg = ModelConfig(**dict(TINY, **CONFIGS[name]))
+    seen = Counter()
+    attr = "reference_gn_mul_add" if plain else "gn_mul_add"
+    for mod in (gn_silu_conv_mod, group_norm_mod):
+        inner = getattr(mod, attr)
+
+        def record(x, scale, bias, *args, inner=inner, **kw):
+            seen[(x.shape[1], x.shape[-1])] += 1
+            assert x.dim() == 4 and x.shape[1] == x.shape[2]
+            return inner(x, scale, bias, *args, **kw)
+
+        monkeypatch.setattr(mod, attr, record)
+    _forward(cfg, plain)
+    assert seen == gn_mul_add_shapes(cfg)
+
+
+@pytest.mark.parametrize("plain", [True, False], ids=["plain", "wrapper"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_mid_attention_shape_is_the_forward_call(monkeypatch, name, plain):
     cfg = ModelConfig(**dict(TINY, **CONFIGS[name]))
     seen = []
@@ -100,6 +125,33 @@ def test_full_width_shapes_pass_the_kernel_limits():
     heads, S, D = mid_attention_shape(cfg)
     assert (heads, S, D) == (8, 1024, 64)
     assert attention_shape_error(S, D) is None
+
+
+def test_full_width_shapes_pass_the_stats_kernel_limits():
+    cfg = ModelConfig(use_pallas_gn=True, use_pallas_gn_conv=True, attention_impl="flash")
+    shapes = gn_mul_add_shapes(cfg)
+    assert sum(shapes.values()) == 45  # the 44 conv inputs and norm_out
+    assert shapes[(cfg.sample_size, cfg.block_out_channels[0])] >= 1
+    assert {C for _, C in shapes} == {64, 128, 192, 256, 384, 512, 768, 1024}
+    for H, C in shapes:
+        assert stats_shape_error(C, cfg.norm_num_groups) is None, (H, C)
+    assert "group_norm" in build.SOURCES
+    assert build.source_int("group_norm", "VEC") == 8
+    assert build.source_int("group_norm", "MAX_C") >= max(C for _, C in shapes)
+
+
+@pytest.mark.parametrize("name", build.SOURCES)
+def test_every_source_states_the_sass_it_needs(name):
+    """chip_smoke.py requires these opcodes in each library's SASS."""
+    ops_needed = build.sass_must_hold(name)
+    assert ops_needed and all(op.replace(".", "").isalnum() for op in ops_needed)
+    if name == "group_norm":
+        assert ops_needed == ("LDG.E.128.CONSTANT", "ATOMG")
+
+
+@pytest.mark.parametrize("C,groups", [(100, 4), (96, 5), (4096, 32), (3080, 8), (64, 0)])
+def test_stats_limits_reject_what_the_kernel_cannot_take(C, groups):
+    assert stats_shape_error(C, groups) is not None
 
 
 @pytest.mark.parametrize("C,Co", [(32, 64), (64, 32), (96, 128), (128, 96)])
