@@ -20,7 +20,10 @@ Phases, each printed as it runs; any failure exits non-zero:
                time, library time where one PyTorch call computes the same
                function, and the least time the card could take (bytes at
                3.35 TB/s or bf16 operations at 989 TFLOP/s, whichever is
-               larger); for the GroupNorm stats also the variance clamp, two
+               larger); a call bound by bytes whose inputs and outputs fit
+               in twice the L2 is timed over rotated copies of its inputs,
+               so that it reads device memory and not the cache (its warm
+               time printed beside); for the GroupNorm stats also the variance clamp, two
                calls and two CUDA-graph replays bit-identical, and one
                device kernel per call
   4. forward   the full-width UNet2D (default widths, seeded random weights)
@@ -36,8 +39,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                TrainConfig, EMA on): the attention backward (pre-pass, one
                main pass, dQ pass) against its plain version at
                [14, 8, 1024, 64] and at a ragged shape, each launch against
-               its own plain version, the forward's lse against
-               torch.logsumexp, two runs bit-identical, times against the
+               its own plain version, the forward's o and lse against
+               theirs, two runs bit-identical, times against the
                bound, the plain version and SDPA's backward, and TFLOP/s on
                the five products; one train step with kernels against one with
                plain versions on the same weights, batch, noise and t; the
@@ -45,6 +48,33 @@ Phases, each printed as it runs; any failure exits non-zero:
                device's idle share and peak memory; then the train CLI as a
                user runs it, on a seeded synthetic PNG corpus: ~30 steps,
                a resume, and a params.npz the generation CLI samples from
+  8. dpm       DPM-Solver++(2M) (20 steps) and its SDE variant (25) at batch
+               8, 256x256: launch counts of one run, output finite and in
+               [-1, 1], scenes/s as the median of three runs; for these and
+               DDIM-50, the largest and mean |delta| against a plain run on
+               the same x_T and noise (the mean gated), and between the
+               plain bf16 run and a plain run with f32 activations
+  9. config-5  the map-conditioned model (128x128, in 1, out 1, cond 2,
+               the default widths): every forward kernel against its plain
+               version at every shape of a batch-16 forward (guidance
+               doubles batch 8), timed; the guided forward (g = 3) with
+               kernels against plain; guided DDIM-50 at batch 8: launch
+               counts and one batch-16 forward per step, scenes/s; at g = 1
+               one batch-8 forward per step
+  10. cond     the attention's forward with lse and its three backward
+               launches at the config-5 train shape [32, 8, 256, 64], each
+               against its plain version as in phase 7, two runs
+               bit-identical; the config-5 conditional train step (batch
+               32, cond_dropout 0.1, EMA 0.999) with kernels against plain
+               on the same batch, noise, t and keep mask, under phase 7's
+               gates; then ms per step
+  11. cli      on a seeded synthetic 128x128 corpus: the conditional train
+               CLI (20 steps), then the generation CLI from its export
+               with --cond_dir --guidance 3 for --sampler dpm and sde; a
+               model outside the kernels' limits (config-1's model
+               section) refused at construction on the card, trained
+               there by the train CLI with --plain and sampled from its
+               export by the generation CLI with --plain
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -53,6 +83,7 @@ line, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -80,6 +111,16 @@ TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_COS_MIN = 0.01, 0.02, 0.999
 # The forward's lse is f32 from f32 accumulators: summation order only.
 LSE_TOL = 1e-4
 TRAIN_STEPS, CLI_STEPS, CLI_RESUME_STEPS, CLI_IMAGES = 10, 30, 36, 256
+# The DPM-Solver++ samplers' default steps, the guidance scale of config-5
+# (drivescenegen_tpu/configs/config5_cond_128n.yaml), and its CLI run.
+DPM_STEPS, SDE_STEPS, GUIDANCE = 20, 25, 3.0
+CLI5_STEPS, CLI5_IMAGES = 20, 128
+# A whole sampling run (batch 8, 256x256, values in [-1, 1]) with kernels
+# against the same run with plain versions on the same x_T and noise: the
+# mean |delta| over every value. The largest |delta| is not gated: a few
+# values of a many-step chain can diverge from bf16 rounding alone (phase
+# 8 prints the same reading for plain bf16 against plain f32).
+MEAN_DELTA_TOL = 0.01
 
 
 class SmokeFailure(Exception):
@@ -101,11 +142,11 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, min_total_ms: float = 30.0, graph: bool = True) -> float:
+def time_ms(fn, min_total_ms: float = 30.0, graph: bool = True, min_calls: int = 3) -> float:
     """Mean ms per call, by CUDA events, after warm-up. graph=True captures
     the calls back to back in a CUDA graph and times its replay: device
     time, without the host's launch cost. graph=False times eager calls,
-    host included."""
+    host included. At least min_calls calls are timed."""
     import torch
 
     fn()
@@ -115,7 +156,8 @@ def time_ms(fn, min_total_ms: float = 30.0, graph: bool = True) -> float:
     fn()
     stop.record()
     torch.cuda.synchronize()
-    n = max(3, min(50 if graph else 200, int(min_total_ms / max(start.elapsed_time(stop), 1e-3))))
+    n = max(min_calls,
+            min(50 if graph else 200, int(min_total_ms / max(start.elapsed_time(stop), 1e-3))))
     if graph:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -140,25 +182,65 @@ def time_ms(fn, min_total_ms: float = 30.0, graph: bool = True) -> float:
     return start.elapsed_time(stop) / n
 
 
-def device_ms(fn, n: int = 20) -> float:
-    """Device time per call of fn: the time of the kernels it launches,
-    summed by torch.profiler over n calls after a warm-up call. Free of the
-    host's enqueue cost, as a CUDA-graph replay is, for calls that cannot
-    be captured in one (autograd's backward)."""
+def time_cold_ms(fn, inputs, bound, bytes_moved: float, min_total_ms: float = 30.0):
+    """time_ms of fn(*inputs), with the inputs of a call bound by bytes
+    (bound = bound_ms(...)) read from device memory and not from the L2
+    cache. Back-to-back calls on one set of inputs find them in L2 when the
+    call's bytes (inputs and outputs) are under twice its size, and would
+    time the cache. So the calls then rotate over copies of the inputs
+    whose total exceeds twice the L2. Returns (ms, copies); copies is 1
+    when no rotation was needed, as for a call bound by operations."""
+    import torch
+
+    props = torch.cuda.get_device_properties(0)
+    l2 = getattr(props, "L2_cache_size", 50 * 2**20)
+    in_bytes = sum(t.numel() * t.element_size() for t in inputs)
+    rotate = bound[1] == "bytes" and bytes_moved < 2 * l2
+    copies = -(-2 * l2 // in_bytes) + 1 if rotate else 1
+    sets = [tuple(inputs)] + [tuple(t.clone() for t in inputs) for _ in range(copies - 1)]
+    turn = itertools.count()
+    ms = time_ms(lambda: fn(*sets[next(turn) % copies]), min_total_ms, min_calls=copies)
+    return ms, copies
+
+
+def device_kernels(fn, n: int = 1, tries: int = 3):
+    """The device kernels n calls of fn launch, by torch.profiler, as
+    (name, count, device us) rows. A profiling session that recorded no
+    device event at all (CUPTI can miss a session's activity) is run
+    again, up to `tries` sessions; after that the rows are empty: not
+    measured."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU]
+        if rows:
+            return rows
+        print(f"profiler: session {attempt + 1} of {tries} recorded no device event")
+    return []
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of fn: the time of the kernels it launches,
+    summed by torch.profiler over n calls after a warm-up call. Free of the
+    host's enqueue cost, as a CUDA-graph replay is, for calls that cannot
+    be captured in one (autograd's backward). Where the profiler records
+    nothing, the eager time by CUDA events, host included, said so."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU)
-    check(total_us > 0, "the profiler recorded no device time")
-    return total_us / 1e3 / n
+    total_us = sum(r[2] for r in device_kernels(fn, n))
+    if total_us > 0:
+        return total_us / 1e3 / n
+    print("device_ms: the profiler recorded no device time; timed eagerly, host included")
+    return time_ms(fn, graph=False)
 
 
 def host_us(fn, n: int = 2000) -> float:
@@ -272,7 +354,8 @@ class KernelRow:
     def __init__(self, name, route, source, replaces):
         self.d = dict(name=name, route=route, source=source, replaces=replaces, launches=0,
                       max_abs_err=0.0, max_rel_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                      bound_by=None, library_ms=None, launches_per_forward=0)
+                      bound_by=None, library_ms=None, launches_per_forward=0,
+                      launches_by_path={})
         self._by = Counter()
 
     def add(self, count, err, ref_max, ms, plain_ms, bound, library_ms=None):
@@ -301,10 +384,12 @@ def main() -> int:
     try:
         from drivescenegen_torch import ops
         from drivescenegen_torch.config import Config, ModelConfig, TrainConfig, save_config
-        from drivescenegen_torch.diffusion import ddim_sample, make_schedule
+        from drivescenegen_torch.diffusion import (ddim_sample, dpmpp_2m_sample,
+                                                   dpmpp_2m_sde_sample, make_guided_denoise,
+                                                   make_schedule)
         from drivescenegen_torch.models import UNet2D
         from drivescenegen_torch.models.unet2d import (conv3x3_shapes, gn_mul_add_shapes,
-                                                       mid_attention_shape)
+                                                       kernel_limit_errors, mid_attention_shape)
         from drivescenegen_torch.models.convert import save_npz, torch_to_flax
         from drivescenegen_torch.ops import build
         from drivescenegen_torch.scripts import generation
@@ -358,16 +443,21 @@ def main() -> int:
     cfg = ModelConfig(use_pallas_gn=True, use_pallas_gn_conv=True, attention_impl="flash")
     shapes = conv3x3_shapes(cfg)
     check(sum(shapes.values()) == 44, f"expected 44 conv pairs per forward, got {sum(shapes.values())}")
-    rows = {
-        "silu_conv3x3": KernelRow("silu_conv3x3", "cuda", "drivescenegen_torch/csrc/gn_silu_conv.cu",
-                                  "drivescenegen_tpu/ops/pallas/gn_silu_conv.py:150"),
-        "gn_mul_add": KernelRow("gn_mul_add", "cuda", "drivescenegen_torch/csrc/group_norm.cu",
-                                "drivescenegen_tpu/ops/pallas/group_norm.py:39"),
-        "silu_affine": KernelRow("silu_affine", "triton", "drivescenegen_torch/ops/group_norm.py",
-                                 "drivescenegen_tpu/ops/pallas/group_norm.py:48"),
-        "attention": KernelRow("attention", "cuda", "drivescenegen_torch/csrc/flash_attention.cu",
-                               "drivescenegen_tpu/models/unet2d.py:307"),
-    }
+
+    def forward_rows():
+        return {
+            "silu_conv3x3": KernelRow("silu_conv3x3", "cuda",
+                                      "drivescenegen_torch/csrc/gn_silu_conv.cu",
+                                      "drivescenegen_tpu/ops/pallas/gn_silu_conv.py:150"),
+            "gn_mul_add": KernelRow("gn_mul_add", "cuda", "drivescenegen_torch/csrc/group_norm.cu",
+                                    "drivescenegen_tpu/ops/pallas/group_norm.py:39"),
+            "silu_affine": KernelRow("silu_affine", "triton", "drivescenegen_torch/ops/group_norm.py",
+                                     "drivescenegen_tpu/ops/pallas/group_norm.py:48"),
+            "attention": KernelRow("attention", "cuda", "drivescenegen_torch/csrc/flash_attention.cu",
+                                   "drivescenegen_tpu/models/unet2d.py:307"),
+        }
+
+    rows = forward_rows()
     G, eps, B = cfg.norm_num_groups, 1e-6, BATCH
 
     def randn(*shape, std=1.0):
@@ -376,56 +466,123 @@ def main() -> int:
     def err_of(got, ref):
         return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
 
-    stats_seen = Counter()
+    def forward_kernels(mcfg, B, rows):
+        """Every forward kernel of a UNet2D of mcfg at batch B against its
+        plain version at every shape the forward gives it (conv3x3_shapes,
+        gn_mul_add_shapes, mid_attention_shape), timed, summed into rows.
+        Calls bound by bytes are timed with their inputs out of L2
+        (time_cold_ms); the stats' warm time is printed beside it."""
+        G = mcfg.norm_num_groups
+        stats_seen = Counter()
 
-    def check_stats(x, scale, bias, count, label):
-        stats_seen[(x.shape[1], x.shape[-1])] += count
-        mul, add = ops.gn_mul_add(x, scale, bias, G, eps)
-        rm, ra = ops.reference_gn_mul_add(x, scale, bias, G, eps)
-        e1, m1 = err_of(mul, rm)
-        e2, m2 = err_of(add, ra)
-        err, ref_max = max(e1, e2), max(m1, m2)
-        check(err <= F32_TOL * max(ref_max, 1.0), f"gn_mul_add {label}: err {err} vs max {ref_max}")
-        C = x.shape[-1]
-        ms = time_ms(lambda: ops.gn_mul_add(x, scale, bias, G, eps))
-        plain = time_ms(lambda: ops.reference_gn_mul_add(x, scale, bias, G, eps))
-        # Library yardstick: the same per-(batch, group) moments in one call.
-        xg = x.view(x.shape[0], -1, G, C // G)
-        lib = time_ms(lambda: torch.var_mean(xg, dim=(1, 3)))
-        bnd = bound_ms(x.numel() * 2 + 2 * C * 4 + 2 * B * C * 4, 3 * x.numel())
-        rows["gn_mul_add"].add(count, err, ref_max, ms, plain, bnd, lib)
-        print(f"  gn_mul_add  {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms, plain "
-              f"{plain:.4f} ms, var_mean {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x{count}")
-        return rm, ra
+        def check_stats(x, scale, bias, count, label):
+            stats_seen[(x.shape[1], x.shape[-1])] += count
+            mul, add = ops.gn_mul_add(x, scale, bias, G, eps)
+            rm, ra = ops.reference_gn_mul_add(x, scale, bias, G, eps)
+            e1, m1 = err_of(mul, rm)
+            e2, m2 = err_of(add, ra)
+            err, ref_max = max(e1, e2), max(m1, m2)
+            check(err <= F32_TOL * max(ref_max, 1.0), f"gn_mul_add {label}: err {err} vs max {ref_max}")
+            C = x.shape[-1]
+            nbytes = x.numel() * 2 + 2 * C * 4 + 2 * x.shape[0] * C * 4
+            bnd = bound_ms(nbytes, 3 * x.numel())
+            ms, copies = time_cold_ms(lambda *a: ops.gn_mul_add(*a, G, eps), (x, scale, bias), bnd,
+                                      nbytes)
+            warm = time_ms(lambda: ops.gn_mul_add(x, scale, bias, G, eps))
+            plain, _ = time_cold_ms(lambda *a: ops.reference_gn_mul_add(*a, G, eps), (x, scale, bias),
+                                    bnd, nbytes)
+            # Library yardstick: the same per-(batch, group) moments in one call.
+            lib, _ = time_cold_ms(lambda x_: torch.var_mean(x_.view(x_.shape[0], -1, G, C // G),
+                                                            dim=(1, 3)), (x,), bnd, nbytes)
+            rows["gn_mul_add"].add(count, err, ref_max, ms, plain, bnd, lib)
+            print(f"  gn_mul_add  {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms over "
+                  f"{copies} input copies (warm in L2 {warm:.4f} ms), plain {plain:.4f} ms, var_mean "
+                  f"{lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x{count}")
+            return rm, ra
 
-    for (H, C, Co), count in sorted(shapes.items()):
-        label = f"[{B},{H},{H},{C}]->{Co}"
-        x = randn(B, H, H, C).bfloat16()
-        scale, bias = 1.0 + randn(C, std=0.2), randn(C, std=0.1)
-        # The weight as the model hands it over: bf16, channels-last OIHW.
-        w = randn(Co, C, 3, 3, std=1.0 / math.sqrt(9 * C)).to(
-            torch.bfloat16, memory_format=torch.channels_last)
-        cb = randn(Co, std=0.1)
-        mul, add = check_stats(x, scale, bias, count, label)
-        got = ops.silu_conv3x3(x, mul, add, w, cb)
-        ref = ops.reference_silu_conv3x3(x, mul, add, w, cb)
+        for (H, C, Co), count in sorted(conv3x3_shapes(mcfg).items()):
+            label = f"[{B},{H},{H},{C}]->{Co}"
+            x = randn(B, H, H, C).bfloat16()
+            scale, bias = 1.0 + randn(C, std=0.2), randn(C, std=0.1)
+            # The weight as the model hands it over: bf16, channels-last OIHW.
+            w = randn(Co, C, 3, 3, std=1.0 / math.sqrt(9 * C)).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+            cb = randn(Co, std=0.1)
+            mul, add = check_stats(x, scale, bias, count, label)
+            got = ops.silu_conv3x3(x, mul, add, w, cb)
+            ref = ops.reference_silu_conv3x3(x, mul, add, w, cb)
+            err, ref_max = err_of(got, ref)
+            check(err <= BF16_TOL * ref_max, f"silu_conv3x3 {label}: err {err} vs max {ref_max}")
+            M = B * H * H
+            nbytes = M * C * 2 + 2 * B * C * 4 + Co * C * 9 * 2 + Co * 4 + M * Co * 2
+            bnd = bound_ms(nbytes, 2 * M * Co * 9 * C)
+            ms, _ = time_cold_ms(ops.silu_conv3x3, (x, mul, add, w, cb), bnd, nbytes)
+            plain, _ = time_cold_ms(ops.reference_silu_conv3x3, (x, mul, add, w, cb), bnd, nbytes)
+            # Library yardstick: cuDNN's conv alone (channels_last bf16) on the
+            # already activated input — a lower bound, not the same function.
+            t = ops.reference_silu_affine(x, mul, add).permute(0, 3, 1, 2)
+            cbl = cb.bfloat16()
+            lib, _ = time_cold_ms(lambda t_, w_, b_: F.conv2d(t_, w_, b_, padding=1), (t, w, cbl),
+                                  bnd, nbytes)
+            rows["silu_conv3x3"].add(count, err, ref_max, ms, plain, bnd, lib)
+            print(f"silu_conv3x3  {label}: err {err:.3g} (max {ref_max:.3g}, tol {BF16_TOL * ref_max:.3g})"
+                  f"  {ms:.4f} ms ({2 * M * Co * 9 * C / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms,"
+                  f" cuDNN conv {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x{count}")
+            del x, w, t, got, ref
+
+        # norm_out: GroupNorm+SiLU at the full resolution.
+        C0, S0 = mcfg.block_out_channels[0], mcfg.sample_size
+        x = randn(B, S0, S0, C0).bfloat16()
+        scale, bias = 1.0 + randn(C0, std=0.2), randn(C0, std=0.1)
+        label = f"[{B},{S0},{S0},{C0}]"
+        mul, add = check_stats(x, scale, bias, 1, label)
+        got, ref = ops.silu_affine(x, mul, add), ops.reference_silu_affine(x, mul, add)
         err, ref_max = err_of(got, ref)
-        check(err <= BF16_TOL * ref_max, f"silu_conv3x3 {label}: err {err} vs max {ref_max}")
-        ms = time_ms(lambda: ops.silu_conv3x3(x, mul, add, w, cb))
-        plain = time_ms(lambda: ops.reference_silu_conv3x3(x, mul, add, w, cb))
-        # Library yardstick: cuDNN's conv alone (channels_last bf16) on the
-        # already activated input — a lower bound, not the same function.
-        t = ops.reference_silu_affine(x, mul, add).permute(0, 3, 1, 2)
-        cbl = cb.bfloat16()
-        lib = time_ms(lambda: F.conv2d(t, w, cbl, padding=1))
-        M = B * H * H
-        bnd = bound_ms(M * C * 2 + 2 * B * C * 4 + Co * C * 9 * 2 + Co * 4 + M * Co * 2,
-                       2 * M * Co * 9 * C)
-        rows["silu_conv3x3"].add(count, err, ref_max, ms, plain, bnd, lib)
-        print(f"silu_conv3x3  {label}: err {err:.3g} (max {ref_max:.3g}, tol {BF16_TOL * ref_max:.3g})"
-              f"  {ms:.4f} ms ({2 * M * Co * 9 * C / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms,"
-              f" cuDNN conv {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x{count}")
-        del x, w, t, got, ref
+        check(err <= BF16_TOL * ref_max, f"silu_affine {label}: err {err} vs max {ref_max}")
+        nbytes = 2 * x.numel() * 2 + 2 * B * C0 * 4
+        bnd = bound_ms(nbytes, 5 * x.numel())
+        ms, copies = time_cold_ms(ops.silu_affine, (x, mul, add), bnd, nbytes)
+        plain, _ = time_cold_ms(ops.reference_silu_affine, (x, mul, add), bnd, nbytes)
+        rows["silu_affine"].add(1, err, ref_max, ms, plain, bnd)
+        print(f"silu_affine   {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms over {copies} "
+              f"input copies, plain {plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
+        check(stats_seen == gn_mul_add_shapes(mcfg),
+              f"gn_mul_add checked at {dict(stats_seen)}, the forward calls {gn_mul_add_shapes(mcfg)}")
+        del x, got, ref
+
+        # Mid-block attention: q, k, v as strided views of the fused qkv output.
+        heads, S, hd = mid_attention_shape(mcfg)
+        Cm = heads * hd
+        qkv = randn(B, S, 3 * Cm).bfloat16()
+
+        def split_qkv(a):
+            return (tt.view(B, S, heads, hd).transpose(1, 2) for tt in a.split(Cm, dim=-1))
+
+        q, k, v = split_qkv(qkv)
+        sc = 1.0 / math.sqrt(hd)
+        got, ref = ops.attention(q, k, v, sc), ops.reference_attention(q, k, v, sc)
+        err, ref_max = err_of(got, ref)
+        label = f"[{B},{heads},{S},{hd}]"
+        check(err <= BF16_TOL * ref_max, f"attention {label}: err {err} vs max {ref_max}")
+        flops = 4 * B * heads * S * S * hd
+        nbytes = 4 * B * heads * S * hd * 2
+        bnd = bound_ms(nbytes, flops)
+        # The fused qkv buffer is the input; q, k and v are views of it.
+        ms, _ = time_cold_ms(lambda a: ops.attention(*split_qkv(a), sc), (qkv,), bnd, nbytes)
+        plain, _ = time_cold_ms(lambda a: ops.reference_attention(*split_qkv(a), sc), (qkv,), bnd,
+                                nbytes)
+        lib, _ = time_cold_ms(lambda a: F.scaled_dot_product_attention(*split_qkv(a), scale=sc),
+                              (qkv,), bnd, nbytes)
+        rows["attention"].add(1, err, ref_max, ms, plain, bnd, lib)
+        print(f"attention     {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+              f"({flops / lib / 1e9:.1f} TFLOP/s), bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
+        del qkv, q, k, v, got, ref
+
+    forward_kernels(cfg, B, rows)
+    C0, S0 = cfg.block_out_channels[0], cfg.sample_size
+    heads, S, hd = mid_attention_shape(cfg)
+    Cm, sc = heads * hd, 1.0 / math.sqrt(hd)
 
     # Ragged shapes, checked and not timed: H and W not multiples of the
     # 8x16 tile, both output-channel tiles (64 and 128), and an add of 0.5
@@ -445,24 +602,6 @@ def main() -> int:
         print(f"silu_conv3x3  {label} (ragged): err {err:.3g} (max {ref_max:.3g}, tol "
               f"{BF16_TOL * ref_max:.3g})")
         del x, w, got, ref
-
-    # norm_out: GroupNorm+SiLU at the full resolution.
-    C0, S0 = cfg.block_out_channels[0], cfg.sample_size
-    x = randn(B, S0, S0, C0).bfloat16()
-    scale, bias = 1.0 + randn(C0, std=0.2), randn(C0, std=0.1)
-    label = f"[{B},{S0},{S0},{C0}]"
-    mul, add = check_stats(x, scale, bias, 1, label)
-    got, ref = ops.silu_affine(x, mul, add), ops.reference_silu_affine(x, mul, add)
-    err, ref_max = err_of(got, ref)
-    check(err <= BF16_TOL * ref_max, f"silu_affine {label}: err {err} vs max {ref_max}")
-    ms = time_ms(lambda: ops.silu_affine(x, mul, add))
-    plain = time_ms(lambda: ops.reference_silu_affine(x, mul, add))
-    bnd = bound_ms(2 * x.numel() * 2 + 2 * B * C0 * 4, 5 * x.numel())
-    rows["silu_affine"].add(1, err, ref_max, ms, plain, bnd)
-    print(f"silu_affine   {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
-    check(stats_seen == gn_mul_add_shapes(cfg),
-          f"gn_mul_add checked at {dict(stats_seen)}, the forward calls {gn_mul_add_shapes(cfg)}")
 
     # GroupNorm stats, checked and not timed: ragged shapes (B = 1 and 3;
     # C = 192, 768, 1024 and the widest the kernel takes; row counts that
@@ -515,7 +654,7 @@ def main() -> int:
     # Two replays of one captured call agree with an eager call (the
     # arrival counters are back at 0 after each launch), and one call is
     # one device kernel: no memset, no second pass.
-    Hs, Cs = min(stats_seen)
+    Hs, Cs = min(gn_mul_add_shapes(cfg))
     x = randn(B, Hs, Hs, Cs).bfloat16()
     scale, bias = 1.0 + randn(Cs, std=0.2), randn(Cs, std=0.1)
     eager = ops.gn_mul_add(x, scale, bias, G, eps)
@@ -530,38 +669,16 @@ def main() -> int:
     check(all(torch.equal(a_, b_) for r in replays for a_, b_ in zip(r, eager)),
           "gn_mul_add: CUDA-graph replays differ from an eager call")
     del graph, captured
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ops.gn_mul_add(x, scale, bias, G, eps)
-        torch.cuda.synchronize()
-    kernels = [(e.key, e.count) for e in prof.key_averages() if e.device_type != DeviceType.CPU]
-    check(len(kernels) == 1 and kernels[0][1] == 1 and "gn_stats_kernel" in kernels[0][0],
-          f"one gn_mul_add call ran {kernels} on the device")
-    print(f"  gn_mul_add  [{B},{Hs},{Hs},{Cs}]: two CUDA-graph replays equal an eager call; "
-          f"one call is one device kernel ({kernels[0][0][:60]})")
+    kernels = [r[:2] for r in device_kernels(lambda: ops.gn_mul_add(x, scale, bias, G, eps))]
+    if kernels:
+        check(len(kernels) == 1 and kernels[0][1] == 1 and "gn_stats_kernel" in kernels[0][0],
+              f"one gn_mul_add call ran {kernels} on the device")
+        one = f"one call is one device kernel ({kernels[0][0][:60]})"
+    else:
+        one = "kernels per call not measured (the profiler recorded no device event)"
+    print(f"  gn_mul_add  [{B},{Hs},{Hs},{Cs}]: two CUDA-graph replays equal an eager call; {one}")
     del xc, eager, replays
 
-    # Mid-block attention: q, k, v as strided views of the fused qkv output.
-    heads, S, hd = mid_attention_shape(cfg)
-    Cm = heads * hd
-    qkv = randn(B, S, 3 * Cm).bfloat16()
-    q, k, v = (tt.view(B, S, heads, hd).transpose(1, 2) for tt in qkv.split(Cm, dim=-1))
-    sc = 1.0 / math.sqrt(hd)
-    got, ref = ops.attention(q, k, v, sc), ops.reference_attention(q, k, v, sc)
-    err, ref_max = err_of(got, ref)
-    label = f"[{B},{heads},{S},{hd}]"
-    check(err <= BF16_TOL * ref_max, f"attention {label}: err {err} vs max {ref_max}")
-    ms = time_ms(lambda: ops.attention(q, k, v, sc))
-    plain = time_ms(lambda: ops.reference_attention(q, k, v, sc))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
-    flops = 4 * B * heads * S * S * hd
-    bnd = bound_ms(4 * B * heads * S * hd * 2, flops)
-    rows["attention"].add(1, err, ref_max, ms, plain, bnd, lib)
-    print(f"attention     {label}: err {err:.3g} (max {ref_max:.3g})  {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
-          f"({flops / lib / 1e9:.1f} TFLOP/s), bound {bnd[0]:.4f} ms ({bnd[1]})  x1")
-    del x, qkv, q, k, v, got, ref
     # Ragged attention, checked and not timed: S = 256 from a fused qkv
     # projection (strided views), and S = 384 (an odd number of 128-key
     # tiles) sliced from [B, heads, S, 2D] buffers, whose head stride is
@@ -648,6 +765,7 @@ def main() -> int:
     print(f"DDIM output: finite, in [{lo:.3f}, {hi:.3f}]")
     for name, row in rows.items():
         row.d["launches"] = counts[name]
+    ddim_counts = counts
     del sample
 
     # Host cost per wrapper call at a tiny shape (the device work is
@@ -692,57 +810,99 @@ def main() -> int:
     tcfg = TrainConfig(ema_decay=0.9999)
     TB = tcfg.batch_size
     phase(f"7 training at full width, batch {TB}")
-    # 7a: the attention backward kernels at the train step's shape, q, k, v
-    # as views of the fused qkv projection and dO as the graph hands it
-    # over (a [B, heads, S, D] view of [B, S, heads, D]).
+    def attention_bwd_checks(TB, heads, S, hd):
+        """The attention's train-step launches at [TB, heads, S, hd], each
+        against its plain version: q, k, v as views of the fused qkv
+        projection and dO as the graph hands it over (a [B, heads, S, D]
+        view of [B, S, heads, D]); the forward's o and lse
+        (attention_with_lse); the whole attention_bwd call, two runs
+        bit-identical; then each backward launch on the same inputs: the
+        pre-pass's di (f32 sums), the main pass's dk, dv and f32 dQ
+        accumulator (dq before its scale, in the kernel's fragment order)
+        given that di, the dQ pass on that accumulator. Returns the inputs
+        and intermediates, and the largest error and reference of each
+        launch."""
+        Cm, sc = heads * hd, 1.0 / math.sqrt(hd)
+        label = f"[{TB},{heads},{S},{hd}]"
+        qkv = randn(TB, S, 3 * Cm).bfloat16()
+        q, k, v = (tt.view(TB, S, heads, hd).transpose(1, 2) for tt in qkv.split(Cm, dim=-1))
+        do = randn(TB, S, heads, hd).bfloat16().transpose(1, 2)
+        o, lse = ops.attention_with_lse(q, k, v, sc)
+        e_o, m_o = err_of(o, ops.reference_attention(q, k, v, sc))
+        check(e_o <= BF16_TOL * m_o, f"attention_with_lse {label} o: err {e_o} vs max {m_o}")
+        lse_err = (lse - ops.reference_attention_lse(q, k, sc)).abs().max().item()
+        print(f"attention_with_lse {label}: o err {e_o:.3g} (max {m_o:.3g}, tol "
+              f"{BF16_TOL * m_o:.3g}), lse max abs err {lse_err:.3g} against torch.logsumexp "
+              f"(tol {LSE_TOL})")
+        check(lse_err <= LSE_TOL, f"attention lse {label} err {lse_err}")
+        got = ops.attention_bwd(q, k, v, o, lse, do, sc)
+        ref = ops.reference_attention_bwd(q, k, v, o, lse, do, sc)
+        for name, a_, b_ in zip(("dq", "dk", "dv"), got, ref):
+            e, m = err_of(a_, b_)
+            print(f"attention_bwd {label} {name}: err {e:.3g} (max {m:.3g}, tol {BF16_TOL * m:.3g})")
+            check(e <= BF16_TOL * m, f"attention_bwd {label} {name}: err {e} vs max {m}")
+        again = ops.attention_bwd(q, k, v, o, lse, do, sc)
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        print(f"attention_bwd {label}: two runs bit-identical: {same}")
+        check(same, f"attention_bwd {label} is not deterministic")
+        del got, ref, again
+        di, sems = ops.attention_bwd_prep(o, do)
+        di_ref = ops.reference_attention_di(o, do)
+        e_di, m_di = err_of(di, di_ref)
+        check(e_di <= F32_TOL * max(m_di, 1.0),
+              f"attention_bwd_prep {label} di: err {e_di} vs max {m_di}")
+        e_main, m_main = 0.0, 0.0
+        main_out = ops.attention_bwd_main(q, k, v, do, lse, di, sems, sc)
+        main_ref = ops.reference_attention_bwd_main(q, k, v, do, lse, di_ref, sc)
+        for name, a_, b_ in zip(("dk", "dv", "acc"), main_out, main_ref):
+            e, m = err_of(a_, b_)
+            check(e <= BF16_TOL * m, f"attention_bwd_main {label} {name}: err {e} vs max {m}")
+            e_main, m_main = max(e_main, e), max(m_main, m)
+        acc = main_out[2]
+        e_dq, m_dq = err_of(ops.attention_bwd_dq(acc, sc), ops.reference_attention_bwd_dq(acc, sc))
+        check(e_dq <= BF16_TOL * m_dq, f"attention_bwd_dq {label}: err {e_dq} vs max {m_dq}")
+        print(f"attention_bwd {label} per launch: pre-pass di err {e_di:.3g} (max {m_di:.3g}), "
+              f"main pass dk/dv/acc err {e_main:.3g} (max {m_main:.3g}), dQ pass err {e_dq:.3g} "
+              f"(max {m_dq:.3g})")
+        del main_ref, di_ref
+        return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, di=di, sems=sems, acc=acc,
+                    errs={"attention_with_lse": (e_o, m_o), "attention_bwd_prep": (e_di, m_di),
+                          "attention_bwd_main": (e_main, m_main), "attention_bwd_dq": (e_dq, m_dq)})
+
+    # 7a: the attention backward kernels at the train step's shape.
     sc = 1.0 / math.sqrt(hd)
-    qkv = randn(TB, S, 3 * Cm).bfloat16()
-    q, k, v = (tt.view(TB, S, heads, hd).transpose(1, 2) for tt in qkv.split(Cm, dim=-1))
-    do = randn(TB, S, heads, hd).bfloat16().transpose(1, 2)
-    o, lse = ops.attention_with_lse(q, k, v, sc)
-    lse_err = (lse - ops.reference_attention_lse(q, k, sc)).abs().max().item()
-    print(f"attention lse [{TB},{heads},{S}]: max abs err {lse_err:.3g} against torch.logsumexp "
-          f"(tol {LSE_TOL})")
-    check(lse_err <= LSE_TOL, f"attention lse err {lse_err}")
+    a7 = attention_bwd_checks(TB, heads, S, hd)
+    q, k, v, o, lse, do, di, sems, acc = (a7[n] for n in ("q", "k", "v", "o", "lse", "do", "di",
+                                                           "sems", "acc"))
+    (e_di, m_di), (e_main, m_main), (e_dq, m_dq) = (
+        a7["errs"][n] for n in ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq"))
     label = f"[{TB},{heads},{S},{hd}]"
-    got = ops.attention_bwd(q, k, v, o, lse, do, sc)
-    ref = ops.reference_attention_bwd(q, k, v, o, lse, do, sc)
-    for name, a_, b_ in zip(("dq", "dk", "dv"), got, ref):
-        e, m = err_of(a_, b_)
-        print(f"attention_bwd {label} {name}: err {e:.3g} (max {m:.3g}, tol {BF16_TOL * m:.3g})")
-        check(e <= BF16_TOL * m, f"attention_bwd {label} {name}: err {e} vs max {m}")
-    again = ops.attention_bwd(q, k, v, o, lse, do, sc)
-    same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
-    print(f"attention_bwd {label}: two runs bit-identical: {same}")
-    check(same, "attention_bwd is not deterministic")
-    # Each launch against its own plain version on the same inputs: the
-    # pre-pass's di (f32 sums); the main pass's dk, dv and f32 dQ
-    # accumulator (dq before its scale, in the kernel's fragment order)
-    # given that di; the dQ pass on that accumulator.
-    di, sems = ops.attention_bwd_prep(o, do)
-    di_ref = ops.reference_attention_di(o, do)
-    e_di, m_di = err_of(di, di_ref)
-    check(e_di <= F32_TOL * max(m_di, 1.0), f"attention_bwd_prep di: err {e_di} vs max {m_di}")
-    e_main, m_main = 0.0, 0.0
-    main_out = ops.attention_bwd_main(q, k, v, do, lse, di, sems, sc)
-    main_ref = ops.reference_attention_bwd_main(q, k, v, do, lse, di_ref, sc)
-    for name, a_, b_ in zip(("dk", "dv", "acc"), main_out, main_ref):
-        e, m = err_of(a_, b_)
-        check(e <= BF16_TOL * m, f"attention_bwd_main {name}: err {e} vs max {m}")
-        e_main, m_main = max(e_main, e), max(m_main, m)
-    acc = main_out[2]
-    e_dq, m_dq = err_of(ops.attention_bwd_dq(acc, sc), ops.reference_attention_bwd_dq(acc, sc))
-    check(e_dq <= BF16_TOL * m_dq, f"attention_bwd_dq: err {e_dq} vs max {m_dq}")
-    print(f"attention_bwd {label} per launch: pre-pass di err {e_di:.3g} (max {m_di:.3g}), main "
-          f"pass dk/dv/acc err {e_main:.3g} (max {m_main:.3g}), dQ pass err {e_dq:.3g} (max "
-          f"{m_dq:.3g})")
-    prep_ms = time_ms(lambda: ops.attention_bwd_prep(o, do))
+    prod = 2 * TB * heads * S * S * hd
+    elems, rows_ = TB * heads * S * hd, TB * heads * S
+    # Bounds: per (batch, head) a product is 2 S^2 D FLOP, and the backward
+    # needs five (S, dP, dV, dK, dQ), all in the main pass, which reads q,
+    # k, v, dO, lse and di and writes dk, dv and the f32 accumulator. The
+    # pre- and dQ passes move bytes: o and dO in, di (and the semaphores)
+    # out; the accumulator in, dq out.
+    prep_bytes = 2 * elems * 2 + rows_ * 4 + rows_ // 64 * 4
+    dq_bytes = elems * 4 + elems * 2
+    bnd_prep = bound_ms(prep_bytes, 2 * elems)
+    bnd_main = bound_ms(4 * elems * 2 + 2 * rows_ * 4 + 2 * elems * 2 + elems * 4, 5 * prod)
+    bnd_dq = bound_ms(dq_bytes, elems)
+    bnd_all = bound_ms(5 * elems * 2 + rows_ * 4 + 3 * elems * 2, 5 * prod)
+    # The pre- and dQ passes are bound by bytes and their working sets fit
+    # in L2: timed over rotated input copies (time_cold_ms), the warm
+    # back-to-back time printed beside it.
+    prep_ms, prep_copies = time_cold_ms(ops.attention_bwd_prep, (o, do), bnd_prep, prep_bytes)
+    prep_warm = time_ms(lambda: ops.attention_bwd_prep(o, do))
     main_ms = time_ms(lambda: ops.attention_bwd_main(q, k, v, do, lse, di, sems, sc))
-    dq_ms = time_ms(lambda: ops.attention_bwd_dq(acc, sc))
+    dq_ms, dq_copies = time_cold_ms(lambda a: ops.attention_bwd_dq(a, sc), (acc,), bnd_dq, dq_bytes)
+    dq_warm = time_ms(lambda: ops.attention_bwd_dq(acc, sc))
     bwd_ms = time_ms(lambda: ops.attention_bwd(q, k, v, o, lse, do, sc))
     plain_ms = time_ms(lambda: ops.reference_attention_bwd(q, k, v, o, lse, do, sc), graph=False)
-    di_plain_ms = time_ms(lambda: ops.reference_attention_di(o, do))
-    dq_plain_ms = time_ms(lambda: ops.reference_attention_bwd_dq(acc, sc))
+    di_plain_ms, _ = time_cold_ms(ops.reference_attention_di, (o, do), bnd_prep, prep_bytes)
+    dq_plain_ms, _ = time_cold_ms(lambda a: ops.reference_attention_bwd_dq(a, sc), (acc,), bnd_dq,
+                                  dq_bytes)
     # Library yardstick: SDPA's backward alone (PyTorch picks its backend;
     # the forward is excluded), by device time: its host enqueue is about
     # as long as its device time, so an eager loop would time the host.
@@ -751,17 +911,6 @@ def main() -> int:
     lib_ms = device_ms(lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), do, retain_graph=True))
     lib_name = sdpa_out.grad_fn.name()
     del ql, kl, vl, sdpa_out
-    # Bounds: per (batch, head) a product is 2 S^2 D FLOP, and the backward
-    # needs five (S, dP, dV, dK, dQ), all in the main pass, which reads q,
-    # k, v, dO, lse and di and writes dk, dv and the f32 accumulator. The
-    # pre- and dQ passes move bytes: o and dO in, di (and the semaphores)
-    # out; the accumulator in, dq out.
-    prod = 2 * TB * heads * S * S * hd
-    elems, rows_ = TB * heads * S * hd, TB * heads * S
-    bnd_prep = bound_ms(2 * elems * 2 + rows_ * 4 + rows_ // 64 * 4, 2 * elems)
-    bnd_main = bound_ms(4 * elems * 2 + 2 * rows_ * 4 + 2 * elems * 2 + elems * 4, 5 * prod)
-    bnd_dq = bound_ms(elems * 4 + elems * 2, elems)
-    bnd_all = bound_ms(5 * elems * 2 + rows_ * 4 + 3 * elems * 2, 5 * prod)
     lib_file = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     src = "drivescenegen_torch/csrc/flash_attention_bwd.cu"
     rows["attention_bwd_prep"] = KernelRow("attention_bwd_prep", "cuda", src, f"{lib_file}:273")
@@ -775,14 +924,15 @@ def main() -> int:
     rows["attention_bwd_main"].d["yardsticks_cover"] = (
         "the whole backward, all three launches (plain_ms, library_ms)")
     rows["attention_bwd_dq"].add(1, e_dq, m_dq, dq_ms, dq_plain_ms, bnd_dq)
-    print(f"attention_bwd {label}: pre-pass {prep_ms:.4f} ms (bound {bnd_prep[0]:.4f}, "
-          f"{bnd_prep[1]}), main pass {main_ms:.4f} ms ({5 * prod / main_ms / 1e9:.1f} TFLOP/s, "
-          f"bound {bnd_main[0]:.4f}, {bnd_main[1]}), dQ pass {dq_ms:.4f} ms (bound "
-          f"{bnd_dq[0]:.4f}, {bnd_dq[1]}); the three {prep_ms + main_ms + dq_ms:.4f} ms, one "
+    print(f"attention_bwd {label}: pre-pass {prep_ms:.4f} ms over {prep_copies} input copies "
+          f"(warm in L2 {prep_warm:.4f}; bound {bnd_prep[0]:.4f}, {bnd_prep[1]}), main pass "
+          f"{main_ms:.4f} ms ({5 * prod / main_ms / 1e9:.1f} TFLOP/s, bound {bnd_main[0]:.4f}, "
+          f"{bnd_main[1]}), dQ pass {dq_ms:.4f} ms over {dq_copies} input copies (warm in L2 "
+          f"{dq_warm:.4f}; bound {bnd_dq[0]:.4f}, {bnd_dq[1]}); the three {prep_ms + main_ms + dq_ms:.4f} ms, one "
           f"attention_bwd call {bwd_ms:.4f} ms ({5 * prod / bwd_ms / 1e9:.1f} TFLOP/s on the five "
           f"products) against the backward's bound {bnd_all[0]:.4f} ms ({bnd_all[1]}), SDPA "
           f"backward ({lib_name}, device time) {lib_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    del qkv, q, k, v, do, o, lse, got, ref, again, di, sems, main_out, main_ref, acc
+    del a7, q, k, v, do, o, lse, di, sems, acc
 
     # Ragged, checked and not timed: other batch and heads, the smallest S
     # the backward takes (o and lse from the plain forward: the forward
@@ -819,87 +969,103 @@ def main() -> int:
     del q, k, v, do, o, lse, got, ref, again
     torch.cuda.empty_cache()
 
+    def train_path(mcfg, tcfg, batch, noise, t_, keep, label):
+        """One train step with kernels against one with plain versions on the
+        same weights, batch, noise, t (and keep mask): loss, grad_norm,
+        gradient cosine, every parameter's gradient, the launches; then a
+        run of steps: launches, ms per step, samples/s, the device's idle
+        share and peak memory. Returns those numbers."""
+        TB = batch.shape[0]
+        schedule = make_schedule(device=dev)
+        weights = UNet2D(mcfg, device=dev, generator=gen).state_dict()
+
+        def train_setup(plain):
+            m = UNet2D(mcfg, device=dev, for_training=True, plain=plain)
+            m.load_state_dict(weights)
+            opt, lr_fn = create_optimizer(tcfg, 1000, m.parameters())
+            return init_train_state(m, opt, ema=True), make_train_step(schedule, lr_fn, tcfg)
+
+        results = {}
+        for plain in (False, True):
+            st, step = train_setup(plain)
+            ops.reset_launch_counts()
+            st, m = step(st, batch, noise, t_, keep)
+            torch.cuda.synchronize()
+            counts1 = ops.launch_counts()
+            named = list(st.model.named_parameters())
+            missing = [n for n, p in named if p.grad is None or not bool(p.grad.any())]
+            check(not missing, f"{label} train step (plain={plain}): no gradient for {missing[:5]}")
+            flat = torch.cat([p.grad.float().reshape(-1) for _, p in named])
+            results[plain] = (m["loss"].item(), m["grad_norm"].item(), flat, counts1)
+            if not plain:
+                kstate, kstep = st, step
+            else:
+                del st, step, named, flat
+        del weights
+        (lk, gk, fk, ck), (lp, gp, fp, cp) = results[False], results[True]
+        cos = torch.nn.functional.cosine_similarity(fk, fp, dim=0).item()
+        print(f"{label} train step kernels vs plain: loss {lk:.6f} vs {lp:.6f} (rel "
+              f"{abs(lk - lp) / lp:.2e}, tol {TRAIN_LOSS_TOL}), grad_norm {gk:.6f} vs {gp:.6f} "
+              f"(rel {abs(gk - gp) / gp:.2e}, tol {TRAIN_GNORM_TOL}), gradient cosine {cos:.6f} "
+              f"(min {TRAIN_COS_MIN}); every parameter has a gradient")
+        check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp), f"{label} train step loss differs")
+        check(abs(gk - gp) <= TRAIN_GNORM_TOL * abs(gp), f"{label} train step grad_norm differs")
+        check(cos >= TRAIN_COS_MIN, f"{label} train step gradient cosine {cos}")
+        want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
+                 "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1}
+        check(ck == want1, f"launches in one kernel train step {ck} != {want1}")
+        check(set(cp.values()) == {0}, f"the plain step launched kernels: {cp}")
+        del results, fk, fp
+        torch.cuda.empty_cache()
+
+        # A run of steps: launch counts, ms per step, samples/s, idle share,
+        # peak memory.
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            kstate, m = kstep(kstate, batch)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        step_ms = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            kstate, m = kstep(kstate, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        train_counts = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = {name: n * TRAIN_STEPS for name, n in want1.items()}
+        print(f"{label}: {TRAIN_STEPS} train steps: launches {train_counts}")
+        check(train_counts == want, f"launches over {TRAIN_STEPS} train steps {train_counts} != {want}")
+        check(math.isfinite(m["loss"].item()), f"{label} train loss is not finite")
+        med_ms = sorted(step_ms)[len(step_ms) // 2]
+        busy = profile_device(lambda: kstep(kstate, batch), n=3, label="train step")
+        idle = None if busy is None else 1.0 - busy
+        print(f"{label} train step: median {med_ms:.2f} ms of {', '.join(f'{x:.1f}' for x in step_ms)}"
+              f" ms; {TB / med_ms * 1e3:.2f} samples/s; device idle "
+              f"{'not measured' if idle is None else f'{100 * idle:.1f}%'} of the profiled steps; "
+              f"peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
+        del kstate, kstep
+        torch.cuda.empty_cache()
+        return dict(med_ms=med_ms, step_ms=step_ms, counts=train_counts, idle=idle, peak_gb=peak_gb,
+                    samples_per_s=TB / med_ms * 1e3)
+
     # 7b: one full-width train step with kernels against one with plain
-    # versions, same weights, batch, noise and t.
+    # versions, same weights, batch, noise and t; 7c: a run of steps.
     tcfg_model = ModelConfig(attention_impl="flash")
-    schedule = make_schedule(device=dev)
     batch = torch.randint(0, 256, (TB, S0, S0, tcfg_model.in_channels), generator=gen,
                           device=dev).to(torch.uint8)
     noise = randn(TB, S0, S0, tcfg_model.in_channels)
     tt_ = torch.randint(0, 1000, (TB,), generator=gen, device=dev)
-
-    weights = UNet2D(tcfg_model, device=dev, generator=gen).state_dict()
-
-    def train_setup(plain):
-        m = UNet2D(tcfg_model, device=dev, for_training=True, plain=plain)
-        m.load_state_dict(weights)
-        opt, lr_fn = create_optimizer(tcfg, 1000, m.parameters())
-        return init_train_state(m, opt, ema=True), make_train_step(schedule, lr_fn, tcfg)
-
-    results = {}
-    for plain in (False, True):
-        st, step = train_setup(plain)
-        ops.reset_launch_counts()
-        st, m = step(st, batch, noise, tt_)
-        torch.cuda.synchronize()
-        counts1 = ops.launch_counts()
-        named = list(st.model.named_parameters())
-        missing = [n for n, p in named if p.grad is None or not bool(p.grad.any())]
-        check(not missing, f"train step (plain={plain}): no gradient for {missing[:5]}")
-        flat = torch.cat([p.grad.float().reshape(-1) for _, p in named])
-        results[plain] = (m["loss"].item(), m["grad_norm"].item(), flat, counts1)
-        if not plain:
-            kstate, kstep = st, step
-        else:
-            del st, step, named, flat
-    del weights
-    (lk, gk, fk, ck), (lp, gp, fp, cp) = results[False], results[True]
-    cos = torch.nn.functional.cosine_similarity(fk, fp, dim=0).item()
-    print(f"train step kernels vs plain: loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / lp:.2e}, "
-          f"tol {TRAIN_LOSS_TOL}), grad_norm {gk:.6f} vs {gp:.6f} (rel {abs(gk - gp) / gp:.2e}, "
-          f"tol {TRAIN_GNORM_TOL}), gradient cosine {cos:.6f} (min {TRAIN_COS_MIN}); every "
-          f"parameter has a gradient")
-    check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp), "train step loss differs")
-    check(abs(gk - gp) <= TRAIN_GNORM_TOL * abs(gp), "train step grad_norm differs")
-    check(cos >= TRAIN_COS_MIN, f"train step gradient cosine {cos}")
-    want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
-             "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1}
-    check(ck == want1, f"launches in one kernel train step {ck} != {want1}")
-    check(set(cp.values()) == {0}, f"the plain step launched kernels: {cp}")
-    del results, fk, fp
-    torch.cuda.empty_cache()
-
-    # 7c: a run of steps: launch counts, ms per step, samples/s, idle share,
-    # peak memory.
-    torch.cuda.reset_peak_memory_stats()
-    for _ in range(3):
-        kstate, m = kstep(kstate, batch)
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    step_ms = []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        kstate, m = kstep(kstate, batch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    train_counts = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {name: n * TRAIN_STEPS for name, n in want1.items()}
-    print(f"{TRAIN_STEPS} train steps: launches {train_counts}")
-    check(train_counts == want, f"launches over {TRAIN_STEPS} train steps {train_counts} != {want}")
-    check(math.isfinite(m["loss"].item()), "train loss is not finite")
-    med_ms = sorted(step_ms)[len(step_ms) // 2]
-    busy = profile_device(lambda: kstep(kstate, batch), n=3, label="train step")
-    idle = None if busy is None else 1.0 - busy
-    print(f"train step: median {med_ms:.2f} ms of {', '.join(f'{x:.1f}' for x in step_ms)} ms; "
-          f"{TB / med_ms * 1e3:.2f} samples/s; device idle "
-          f"{'not measured' if idle is None else f'{100 * idle:.1f}%'} of the profiled steps; "
-          f"peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
+    tr = train_path(tcfg_model, tcfg, batch, noise, tt_, None, f"batch {TB}")
+    med_ms, step_ms, idle, peak_gb, train_counts = (tr[k] for k in ("med_ms", "step_ms", "idle",
+                                                                    "peak_gb", "counts"))
     for name, row in rows.items():
+        row.d["launches_by_path"][f"DDIM-{STEPS}"] = ddim_counts[name]
         row.d["launches_per_train_step"] = train_counts[name] // TRAIN_STEPS
+        row.d["launches_by_path"][f"train step, batch {TB} (x{TRAIN_STEPS})"] = train_counts[name]
         if name.startswith("attention_bwd"):
             row.d["launches"] = train_counts[name]
-    del kstate, kstep, batch, noise
+    del batch, noise
     torch.cuda.empty_cache()
 
     # 7d: the train CLI as a user runs it: a seeded synthetic corpus, the
@@ -948,6 +1114,281 @@ def main() -> int:
         print("cli export: the generation CLI sampled loop_000_batch_000.png (DDIM-10) from the "
               "trained params.npz")
 
+    # ---------------------------------------------------------------- 8
+    phase(f"8 DPM-Solver++ samplers: DPM-{DPM_STEPS} and SDE-{SDE_STEPS}, batch {B}, {S0}x{S0}")
+    model = UNet2D(cfg, device=dev, generator=gen).eval()
+    plain_model = UNet2D(cfg, device=dev, plain=True).eval()
+    plain_model.load_state_dict(model.state_dict())
+    schedule = make_schedule(device=dev)
+    shape = (B, S0, S0, cfg.out_channels)
+    per_forward = {"silu_conv3x3": 44, "gn_mul_add": 45, "silu_affine": 1, "attention": 1}
+
+    def timed_sample(fn, denoise, shape, n, seed=9):
+        """One sampling run from a seeded generator (the same x_T and noise
+        for every denoiser), synchronized; returns (x, seconds)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn(denoise, schedule, shape, torch.Generator(device=dev).manual_seed(seed), n)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # The same weights with f32 activations (plain versions, TF32 off): how
+    # far bf16 rounding alone moves each sampler's output from its f32
+    # path, beside how far the kernels move it from the bf16 plain path.
+    plain32 = UNet2D(dataclasses.replace(cfg, dtype="float32"), device=dev, plain=True).eval()
+    plain32.load_state_dict(model.state_dict())
+
+    def deltas(a, b):
+        d = (a - b).abs()
+        return d.max().item(), d.mean().item()
+
+    dpm_summary, outs = {}, {}
+    for name, fn, n in ((f"DPM-{DPM_STEPS}", dpmpp_2m_sample, DPM_STEPS),
+                        (f"SDE-{SDE_STEPS}", dpmpp_2m_sde_sample, SDE_STEPS),
+                        (f"DDIM-{STEPS}", ddim_sample, STEPS)):
+        ops.reset_launch_counts()
+        out, dt0 = timed_sample(fn, model, shape, n)
+        counts = ops.launch_counts()
+        want = {k: per_forward.get(k, 0) * n for k in counts}
+        print(f"{name}: {dt0:.3f} s; launches {counts}")
+        check(counts == want, f"{name} launch counts {counts} != {want}")
+        check(bool(torch.isfinite(out).all()), f"{name} output is not finite")
+        lo, hi = out.min().item(), out.max().item()
+        check(-1.0 <= lo and hi <= 1.0, f"{name} output outside [-1, 1]: [{lo}, {hi}]")
+        ref = timed_sample(fn, plain_model, shape, n)[0]
+        ref32 = timed_sample(fn, plain32, shape, n)[0]
+        d_kp, d_pf, d_kf = deltas(out, ref), deltas(ref, ref32), deltas(out, ref32)
+        print(f"{name} on the same x_T and noise, max / mean |delta|: kernels vs plain bf16 "
+              f"{d_kp[0]:.4g} / {d_kp[1]:.4g} (mean tol {MEAN_DELTA_TOL}); plain bf16 vs plain "
+              f"f32 {d_pf[0]:.4g} / {d_pf[1]:.4g}; kernels vs plain f32 {d_kf[0]:.4g} / "
+              f"{d_kf[1]:.4g}")
+        check(d_kp[1] <= MEAN_DELTA_TOL, f"{name}: mean |delta| kernels vs plain {d_kp[1]} > "
+                                         f"{MEAN_DELTA_TOL}")
+        summary = dict(max_abs_delta_vs_plain=d_kp[0], mean_abs_delta_vs_plain=d_kp[1],
+                       plain_bf16_vs_f32=d_pf, kernels_vs_plain_f32=d_kf)
+        if fn is not ddim_sample:  # DDIM-50's launches and scenes/s are phase 5's
+            for k, row in rows.items():
+                row.d["launches_by_path"][name] = counts[k]
+            runs = [dt0] + [timed_sample(fn, model, shape, n)[1] for _ in range(2)]
+            med = sorted(runs)[1]
+            run_idle = 1 - n * fwd_graph_ms / 1e3 / med
+            print(f"{name} runs: {', '.join(f'{x:.3f}' for x in runs)} s; median {med:.3f} s, "
+                  f"{B / med:.4f} scenes/s, the device idle {100 * run_idle:.1f}% (phase 4's graph "
+                  f"forward x {n}); output finite, in [{lo:.3f}, {hi:.3f}]")
+            summary.update(seconds_runs=runs, scenes_per_s=B / med, device_idle=run_idle)
+        dpm_summary[name] = summary
+        outs[name] = out
+        del ref, ref32
+    # Two correct solvers of one ODE from the same x_T, for scale.
+    d_sol = deltas(outs[f"DPM-{DPM_STEPS}"], outs[f"DDIM-{STEPS}"])
+    print(f"DPM-{DPM_STEPS} vs DDIM-{STEPS}, both with kernels, on the same x_T: max / mean "
+          f"|delta| {d_sol[0]:.4g} / {d_sol[1]:.4g}")
+    dpm_summary["dpm_vs_ddim_same_x_T"] = d_sol
+    del model, plain_model, plain32, outs
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- 9
+    cfg5 = ModelConfig(sample_size=128, in_channels=1, out_channels=1, cond_channels=2)
+    S5, GB5 = cfg5.sample_size, BATCH
+    phase(f"9 config-5 ({S5}x{S5}, cond_channels {cfg5.cond_channels}): kernels at forward batch "
+          f"{2 * GB5}, the guided forward, guided DDIM-{STEPS} at batch {GB5}")
+    check(kernel_limit_errors(cfg5) == [] and kernel_limit_errors(cfg5, for_training=True) == [],
+          f"config-5 outside the kernels' limits: {kernel_limit_errors(cfg5)}")
+    rows5 = forward_rows()
+    forward_kernels(cfg5, 2 * GB5, rows5)
+    for name, row in rows5.items():
+        rows[name].d[f"config5_forward_batch{2 * GB5}"] = {
+            k: row.d[k] for k in ("launches_per_forward", "max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}
+    model5 = UNet2D(cfg5, device=dev, generator=gen).eval()
+    plain5 = UNet2D(cfg5, device=dev, plain=True).eval()
+    plain5.load_state_dict(model5.state_dict())
+    cond5 = randn(GB5, S5, S5, cfg5.cond_channels).clamp(-1.0, 1.0)
+    x5 = randn(GB5, S5, S5, cfg5.in_channels)
+    with torch.no_grad():
+        t5 = torch.tensor(417, device=dev)
+        eps_k = make_guided_denoise(model5, cond5, GUIDANCE)(x5, t5)
+        eps_p = make_guided_denoise(plain5, cond5, GUIDANCE)(x5, t5)
+    check(tuple(eps_k.shape) == (GB5, S5, S5, 1) and bool(torch.isfinite(eps_k).all()),
+          f"guided eps {tuple(eps_k.shape)}, finite {bool(torch.isfinite(eps_k).all())}")
+    err, ref_max = err_of(eps_k, eps_p)
+    tol = FORWARD_TOL * max(1.0, ref_max)
+    print(f"guided forward (g={GUIDANCE}, batch {GB5} doubled): max abs err {err:.4g}, mean abs "
+          f"err {(eps_k - eps_p).abs().mean().item():.3g} (max |eps| {ref_max:.3g}, tol {tol:.3g})")
+    check(err <= tol, f"guided forward: kernel and plain eps differ by {err} > {tol}")
+    del plain5, eps_k, eps_p
+    with torch.no_grad():
+        xg = randn(2 * GB5, S5, S5, cfg5.in_channels)
+        cg = torch.cat([cond5, torch.zeros_like(cond5)])
+        fwd5_graph_ms = time_ms(lambda: model5(xg, t5, cg), 100.0)
+    print(f"config-5 forward at batch {2 * GB5} as a CUDA graph (device only): {fwd5_graph_ms:.2f} ms")
+    del xg, cg
+    shape5 = (GB5, S5, S5, cfg5.out_channels)
+    guided = {}
+    for g in (GUIDANCE, 1.0):
+        batches = []
+
+        def spy(x, t, c):
+            batches.append(x.shape[0])
+            return model5(x, t, c)
+
+        ops.reset_launch_counts()
+        out, dt0 = timed_sample(ddim_sample, make_guided_denoise(spy, cond5, g), shape5, STEPS)
+        counts = ops.launch_counts()
+        fb = GB5 if g == 1.0 else 2 * GB5
+        want = {k: per_forward.get(k, 0) * STEPS for k in counts}
+        name = f"config-5 guided DDIM-{STEPS}, g={g:g}"
+        print(f"{name}: {dt0:.3f} s; launches {counts}; forward batches {Counter(batches)}")
+        check(counts == want, f"{name} launch counts {counts} != {want}")
+        check(batches == [fb] * STEPS, f"{name}: forward batches {Counter(batches)}, want {fb} x "
+                                       f"{STEPS}")
+        for k, row in rows.items():
+            row.d["launches_by_path"][name] = counts[k]
+        check(bool(torch.isfinite(out).all()) and out.abs().max().item() <= 1.0,
+              f"{name} output not finite or outside [-1, 1]")
+        runs = [dt0]
+        if g != 1.0:
+            runs += [timed_sample(ddim_sample, make_guided_denoise(model5, cond5, g), shape5,
+                                  STEPS)[1] for _ in range(2)]
+        med = sorted(runs)[len(runs) // 2]
+        run_idle = 1 - STEPS * fwd5_graph_ms / 1e3 / med if g != 1.0 else None
+        print(f"{name} runs: {', '.join(f'{x:.3f}' for x in runs)} s; median {med:.3f} s, "
+              f"{GB5 / med:.4f} scenes/s (forward batch {fb})"
+              + (f"; the device idle {100 * run_idle:.1f}% (the graph forward x {STEPS})"
+                 if run_idle is not None else ""))
+        guided[name] = dict(seconds_runs=runs, scenes_per_s=GB5 / med, forward_batch=fb,
+                            device_idle=run_idle)
+        del out
+    del model5
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 10
+    tcfg5 = TrainConfig(batch_size=32, learning_rate=1e-4, lr_warmup_steps=500, ema_decay=0.999,
+                        cond_dropout=0.1)
+    TB5 = tcfg5.batch_size
+    phase(f"10 config-5 conditional training, batch {TB5}, cond_dropout {tcfg5.cond_dropout}")
+    # The attention's forward with lse and its three backward launches at
+    # the shape this train step gives them, each against its plain version
+    # (at S = 256 both key tiles start their dQ walk at query tile 0).
+    a10 = attention_bwd_checks(TB5, *mid_attention_shape(cfg5))
+    label5 = "x".join(str(n) for n in a10["q"].shape)
+    for name, (e, _) in a10["errs"].items():
+        row = rows["attention" if name == "attention_with_lse" else name]
+        row.d[f"config5_train_{label5}_max_abs_err"] = e
+    del a10
+    ch5 = cfg5.cond_channels + cfg5.in_channels
+    batch5 = torch.randint(0, 256, (TB5, S5, S5, ch5), generator=gen, device=dev).to(torch.uint8)
+    noise5 = randn(TB5, S5, S5, cfg5.in_channels)
+    tt5 = torch.randint(0, 1000, (TB5,), generator=gen, device=dev)
+    keep5 = torch.rand(TB5, generator=gen, device=dev) >= tcfg5.cond_dropout
+    keep5[0] = False  # at least one sample trains the null branch
+    print(f"keep mask: {int(keep5.sum())} of {TB5} samples keep their conditioning")
+    tr5 = train_path(cfg5, tcfg5, batch5, noise5, tt5, keep5, f"config-5 batch {TB5}")
+    for name, row in rows.items():
+        row.d["launches_by_path"][f"config-5 train step, batch {TB5} (x{TRAIN_STEPS})"] = \
+            tr5["counts"][name]
+    del batch5, noise5
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------------- 11
+    phase("11 conditional CLIs and the kernels' limits at construction")
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+        os.makedirs(data_dir)
+        pattern = synthetic_corpus(data_dir, CLI5_IMAGES, S5, seed=20261016)
+        cfg_path = os.path.join(tmp, "cfg.yaml")
+        run_cfg = Config(model=cfg5)
+        run_cfg.train = dataclasses.replace(tcfg5, device_data="on", eval_inference_steps=10,
+                                            log_every=5, save_model_epochs=1000,
+                                            save_image_epochs=1000, output_dir=out_dir,
+                                            dataset_glob=pattern)
+        save_config(run_cfg, cfg_path)
+        t0 = time.perf_counter()
+        log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI5_STEPS)])
+        cli5_s = time.perf_counter() - t0
+        records = [json.loads(ln) for ln in open(os.path.join(out_dir, "logs", "metrics.jsonl"))]
+        last = records[-1]
+        launched = logged_launches(log)
+        print(f"conditional train CLI: {CLI5_STEPS} steps in {cli5_s:.1f} s wall; last log step "
+              f"{last['step']} loss {last['loss']:.4f} at {last['samples_per_sec']:.1f} samples/s; "
+              f"launches {launched}")
+        check(last["step"] == CLI5_STEPS and math.isfinite(last["loss"]),
+              f"conditional train CLI ended at {last}")
+        check(all(launched[name] == CLI5_STEPS for name in
+                  ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq")),
+              f"conditional train CLI launches {launched}")
+        cond_pngs = sorted(f for f in os.listdir(data_dir) if f.endswith(".png"))
+        for sampler, n in (("dpm", DPM_STEPS), ("sde", SDE_STEPS)):
+            gen_dir = os.path.join(tmp, f"gen_{sampler}")
+            ops.reset_launch_counts()
+            rate = generation.main(["--model_dir", out_dir, "--output_dir", gen_dir, "--sampler",
+                                    sampler, "--cond_dir", data_dir, "--guidance", str(GUIDANCE),
+                                    "--batch_size", "2", "--num_batches", "1", "--device",
+                                    "cuda"])
+            counts = ops.launch_counts()
+            pngs = sorted(os.listdir(gen_dir))
+            check(pngs == ["loop_000_batch_000.png", "loop_000_batch_001.png"],
+                  f"conditional generation CLI ({sampler}) wrote {pngs}")
+            for i, png in enumerate(pngs):
+                img = np.asarray(Image.open(os.path.join(gen_dir, png)))
+                src = np.asarray(Image.open(os.path.join(data_dir, cond_pngs[i])))
+                check(img.shape == (S5, S5, 3) and np.array_equal(img[..., :2], src[..., :2]),
+                      f"conditional generation CLI ({sampler}): {png} is not [cond R/G | sample]")
+            want = {k: per_forward.get(k, 0) * n for k in counts}
+            check(counts == want, f"conditional generation CLI ({sampler}) launches {counts}")
+            print(f"conditional generation CLI --sampler {sampler} (default {n} steps) --cond_dir "
+                  f"--guidance {GUIDANCE}: {pngs}, cond R/G first, at {rate:.4f} scenes/s; "
+                  f"launches {counts}")
+
+        # F1: a model outside the kernels' limits (config-1's model section:
+        # f32, widths 32/64, head dim 8) is refused at construction on the
+        # card, naming plain=True; the train CLI's --plain runs it there.
+        cfg1 = ModelConfig(sample_size=64, in_channels=1, out_channels=1,
+                           block_out_channels=(32, 64), layers_per_block=1, norm_num_groups=8,
+                           attention_head_dim=8, dtype="float32")
+        for for_training in (False, True):
+            try:
+                UNet2D(cfg1, device=dev, for_training=for_training)
+            except ValueError as e:
+                check("plain=True" in str(e) and all(line in str(e) for line in
+                                                     kernel_limit_errors(cfg1, for_training)),
+                      f"config-1 construction error does not name its limits: {e}")
+                print(f"config-1 on CUDA (for_training={for_training}) refused at construction: "
+                      + str(e).replace("\n", " | "))
+            else:
+                raise SmokeFailure(f"UNet2D(config-1, cuda, for_training={for_training}) built")
+        data1, out1 = os.path.join(tmp, "data1"), os.path.join(tmp, "run1")
+        os.makedirs(data1)
+        pattern1 = synthetic_corpus(data1, 16, cfg1.sample_size, seed=1)
+        cfg1_path = os.path.join(tmp, "cfg1.yaml")
+        run1 = Config(model=cfg1)
+        run1.train = dataclasses.replace(TrainConfig(batch_size=8), eval_inference_steps=10,
+                                         log_every=1, save_model_epochs=1000,
+                                         save_image_epochs=1000, output_dir=out1,
+                                         dataset_glob=pattern1)
+        save_config(run1, cfg1_path)
+        log = run_cli(here, ["--cfg_file", cfg1_path, "--max_steps", "4", "--plain"])
+        launched = logged_launches(log)
+        check(set(launched.values()) == {0}, f"--plain train CLI launched kernels: {launched}")
+        check(latest_step(os.path.join(out1, "checkpoints")) == 4 and
+              os.listdir(os.path.join(out1, "samples")) == ["000.png"],
+              "--plain train CLI on config-1 did not finish")
+        print("config-1 train CLI --plain on CUDA: 4 steps, a checkpoint and an eval sample; "
+              f"launches {launched}")
+        gen1 = os.path.join(tmp, "gen1")
+        ops.reset_launch_counts()
+        generation.main(["--model_dir", out1, "--output_dir", gen1, "--sampler", "dpm", "--steps",
+                         "5", "--batch_size", "1", "--num_batches", "1", "--device", "cuda",
+                         "--plain"])
+        counts = ops.launch_counts()
+        check(os.listdir(gen1) == ["loop_000_batch_000.png"] and set(counts.values()) == {0},
+              f"--plain generation CLI on config-1 wrote {os.listdir(gen1)}, launches {counts}")
+        print(f"config-1 generation CLI --plain on CUDA from that export: DPM-5, "
+              f"loop_000_batch_000.png; launches {counts}")
+
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
@@ -963,7 +1404,13 @@ def main() -> int:
                                   "attention_bwd_bound_ms": bnd_all[0],
                                   "attention_bwd_sdpa_ms": lib_ms,
                                   "attention_bwd_plain_ms": plain_ms,
-                                  "train_cli_seconds": cli_s, "card": smi}}))
+                                  "train_cli_seconds": cli_s,
+                                  "dpm_samplers": dpm_summary,
+                                  "config5_guided_ddim": guided,
+                                  "config5_forward_graph_ms": fwd5_graph_ms,
+                                  "config5_train_step": {k: tr5[k] for k in (
+                                      "med_ms", "step_ms", "samples_per_s", "idle", "peak_gb")},
+                                  "config5_train_cli_seconds": cli5_s, "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

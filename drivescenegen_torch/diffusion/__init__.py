@@ -1,3 +1,7 @@
+from drivescenegen_torch.diffusion.cfg import (  # noqa: F401
+    apply_cond_dropout,
+    make_guided_denoise,
+)
 from drivescenegen_torch.diffusion.schedule import (  # noqa: F401
     DiffusionSchedule,
     make_schedule,
@@ -7,4 +11,7 @@ from drivescenegen_torch.diffusion.samplers import (  # noqa: F401
     ddim_sample,
     ddpm_timesteps,
     ddim_timesteps,
+    dpmpp_2m_coefficients,
+    dpmpp_2m_sample,
+    dpmpp_2m_sde_sample,
 )

@@ -18,8 +18,12 @@ Module names match the flax tree (down_{i}_res_{j}, mid_attn,
 up_{i}_upsample, ...). On a CUDA tensor every GN+SiLU+conv3x3 pair of a
 ResnetBlock, norm_out and the mid-block attention run the hand-written
 kernels (drivescenegen_torch/ops); on a CPU tensor, their plain versions.
-`plain=True` runs the plain versions on any device — the comparison for
-the kernels on the card, never the sampling path.
+`plain=True` runs the plain versions on any device: the comparison for
+the kernels on the card, and the explicit arm (the CLIs' --plain) for a
+model outside the kernels' limits. On CUDA with plain=False the
+constructor checks every kernel call a forward will make against those
+limits (kernel_limit_errors) and raises there, naming each broken limit
+and plain=True; nothing switches to the plain versions on its own.
 
 `for_training=True` is the arm the train step differentiates. The GN+SiLU
 kernels have no backward, in the JAX package either (its config.py:79-80),
@@ -35,7 +39,7 @@ from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -43,6 +47,9 @@ import torch.nn.functional as F
 
 from drivescenegen_torch import ops
 from drivescenegen_torch.config import ModelConfig
+from drivescenegen_torch.ops.attention import attention_bwd_shape_error, attention_shape_error
+from drivescenegen_torch.ops.gn_silu_conv import conv_shape_error
+from drivescenegen_torch.ops.group_norm import stats_shape_error
 from drivescenegen_torch.utils.device import resolve_device
 
 GN_EPS = 1e-6
@@ -318,6 +325,34 @@ def mid_attention_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
     return heads, side * side, ch[-1] // heads
 
 
+def kernel_limit_errors(cfg: ModelConfig, for_training: bool = False) -> List[str]:
+    """Every limit of the hand-written kernels that a UNet2D forward of
+    `cfg` on CUDA would break, one message per distinct breach; empty when
+    the kernels take every call. The sampling arm runs all four forward
+    kernels at the shapes conv3x3_shapes, gn_mul_add_shapes and
+    mid_attention_shape list; the training arm (for_training=True) runs
+    only the attention, forward and backward. The limits are the wrappers'
+    own predicates, read from the kernel sources (ops/build.py
+    source_int)."""
+    errors = []
+    kernels = "the attention kernels" if for_training else "silu_conv3x3, gn_mul_add and attention"
+    if cfg.dtype != "bfloat16":
+        errors.append(f"{kernels} take bfloat16 activations, got dtype {cfg.dtype}")
+    heads, S, D = mid_attention_shape(cfg)
+    checks = [("attention", attention_shape_error(S, D))]
+    if for_training:
+        checks.append(("attention backward", attention_bwd_shape_error(S, D)))
+    else:
+        checks += [("silu_conv3x3", conv_shape_error(C, Co))
+                   for _, C, Co in sorted(conv3x3_shapes(cfg))]
+        checks += [("gn_mul_add", stats_shape_error(C, cfg.norm_num_groups))
+                   for _, C in sorted(gn_mul_add_shapes(cfg))]
+    for kernel, why in checks:
+        if why and f"{kernel}: {why}" not in errors:
+            errors.append(f"{kernel}: {why}")
+    return errors
+
+
 class UNet2D(nn.Module):
     """The denoiser. forward(x_noisy, t, cond=None) -> eps_hat.
 
@@ -335,6 +370,13 @@ class UNet2D(nn.Module):
                  generator: Optional[torch.Generator] = None, for_training: bool = False):
         super().__init__()
         device = resolve_device(device)
+        if device.type == "cuda" and not plain:
+            errors = kernel_limit_errors(cfg, for_training)
+            if errors:
+                raise ValueError(
+                    "this model is outside the CUDA kernels' limits:\n  " + "\n  ".join(errors)
+                    + "\nbuild it with UNet2D(..., plain=True) (the CLIs' --plain) to run "
+                    "PyTorch's library ops instead")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         ch = tuple(cfg.block_out_channels)

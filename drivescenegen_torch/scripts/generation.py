@@ -1,19 +1,33 @@
 """Sample scene rasters from a trained model (port of
-drivescenegen_tpu/scripts/generation.py for the DDPM and DDIM samplers).
+drivescenegen_tpu/scripts/generation.py).
 
   python -m drivescenegen_torch.scripts.generation --model_dir <dir> \
-      --sampler ddim --steps 50 --batch_size 8 --num_batches 4
+      --sampler ddim|ddpm|dpm|sde [--steps N] --batch_size 8 --num_batches 4 \
+      [--cond_dir <map rasters> --guidance 3] [--plain]
 
 <model_dir> holds config.yaml (its model and diffusion sections are spliced
 into the run's config) and params.npz, the flat flax parameter tree
-(models/convert.py). Images are written as loop_NNN_batch_III.png, rounded
-to uint8 from [-1, 1]. Runs on --device (default cuda).
+(models/convert.py). The default steps are ddim_steps for ddim, 20 for dpm
+(DPM-Solver++(2M)), 25 for sde (its SDE variant) and num_inference_steps
+for ddpm; the default spacing is trailing for dpm and sde, leading for
+ddim and ddpm. With --cond_dir (a model with cond_channels > 0) batch
+`num` is conditioned on the sorted PNGs of that directory, taken in turn
+((num * B + i) % count), their first cond_channels channels mapped to
+[-1, 1], under classifier-free guidance --guidance (default
+generation.guidance_scale); each PNG then holds the cond channels first
+and the sample after. Images are written as loop_NNN_batch_III.png,
+rounded to uint8 from [-1, 1]; a one-channel sample (an unconditional
+out_channels 1 model) as a gray PNG, where the JAX package's CLI raises
+in PIL. Runs on --device (default cuda); --plain
+runs PyTorch's library ops there instead of the kernels, for a model
+outside their limits (models/unet2d.py kernel_limit_errors).
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import glob
 import os
 import time
 
@@ -21,7 +35,15 @@ import numpy as np
 import torch
 
 from drivescenegen_torch.config import load_config
-from drivescenegen_torch.diffusion import ddim_sample, ddpm_sample, make_schedule
+from drivescenegen_torch.data.dataset import load_image
+from drivescenegen_torch.diffusion import (
+    ddim_sample,
+    ddpm_sample,
+    dpmpp_2m_sample,
+    dpmpp_2m_sde_sample,
+    make_guided_denoise,
+    make_schedule,
+)
 from drivescenegen_torch.models import UNet2D
 from drivescenegen_torch.models.convert import flax_to_torch, load_npz
 from drivescenegen_torch.utils.device import resolve_device
@@ -30,10 +52,11 @@ from drivescenegen_torch.utils.logging import get_logger
 logger = get_logger("generation")
 
 
-def load_model_for_sampling(cfg, model_dir: str, device):
+def load_model_for_sampling(cfg, model_dir: str, device, plain: bool = False):
     """Build the UNet + schedule on `device` and load <model_dir>/params.npz.
     The model/diffusion config sections are spliced from
-    <model_dir>/config.yaml when it exists; cfg is updated in place."""
+    <model_dir>/config.yaml when it exists; cfg is updated in place.
+    plain=True builds the model on PyTorch's library ops."""
     model_cfg_path = os.path.join(model_dir, "config.yaml")
     if os.path.exists(model_cfg_path):
         trained = load_config(model_cfg_path)
@@ -43,7 +66,7 @@ def load_model_for_sampling(cfg, model_dir: str, device):
     if not os.path.exists(params_path):
         raise SystemExit(f"no weights at {params_path}: the port reads the flat flax tree "
                          f"from params.npz (models/convert.py save_npz)")
-    model = UNet2D(cfg.model, device=device)
+    model = UNet2D(cfg.model, device=device, plain=plain)
     model.load_state_dict(flax_to_torch(load_npz(params_path), cfg.model))
     model.eval()
     return model, make_schedule(cfg.diffusion, device=device)
@@ -60,6 +83,14 @@ def quantize(x: torch.Tensor) -> np.ndarray:
     return np.round(arr01 * 255).astype(np.uint8)
 
 
+def cond_batch(files, num: int, batch_size: int, res: int, cond_channels: int, device):
+    """The conditioning of batch `num`: the cond PNGs taken in turn, their
+    first cond_channels channels, mapped to [-1, 1]."""
+    sel = [files[(num * batch_size + i) % len(files)] for i in range(batch_size)]
+    maps = np.stack([load_image(p, res)[..., :cond_channels] for p in sel])
+    return torch.from_numpy((maps - 0.5) / 0.5).to(device)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Scene generation (PyTorch)")
     parser.add_argument("--cfg_file", default=None, type=str)
@@ -73,48 +104,69 @@ def main(argv=None):
     parser.add_argument("--eta", default=None, type=float,
                         help="DDIM stochasticity (0 = deterministic)")
     parser.add_argument("--spacing", default=None, choices=[None, "leading", "trailing"],
-                        help="timestep spacing (default leading, diffusers parity)")
+                        help="timestep spacing (default trailing for dpm/sde, leading for "
+                             "ddim/ddpm)")
     parser.add_argument("--cond_dir", default=None, type=str,
-                        help="conditional mode (not in the port yet)")
+                        help="conditional mode: directory of rasters whose R/G map channels "
+                             "condition the generation (a cond_channels > 0 model)")
     parser.add_argument("--guidance", default=None, type=float,
-                        help="classifier-free guidance scale (conditional mode)")
+                        help="classifier-free guidance scale (conditional mode; 0 = "
+                             "unconditional)")
     parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--plain", action="store_true",
+                        help="run PyTorch's library ops instead of the CUDA kernels, for a "
+                             "model outside their limits")
     args = parser.parse_args(argv)
 
     cfg = load_config(args.cfg_file)
     gcfg = cfg.generation
     sampler = args.sampler or gcfg.sampler
-    if sampler in ("dpm", "sde"):
-        raise SystemExit(f"--sampler {sampler}: the DPM-Solver++ samplers come with the next "
-                         f"slice of the port; use ddpm or ddim")
-    if args.cond_dir is not None:
-        raise SystemExit("--cond_dir: conditional generation (diffusion/cfg.py) comes with the "
-                         "next slice of the port")
     device = resolve_device(args.device)
     model_dir = args.model_dir or gcfg.model_dir
     output_dir = args.output_dir or gcfg.output_dir
-    steps = args.steps or (gcfg.ddim_steps if sampler == "ddim" else gcfg.num_inference_steps)
+    steps = args.steps or {"ddim": gcfg.ddim_steps, "dpm": 20, "sde": 25}.get(
+        sampler, gcfg.num_inference_steps)
     batch_size = args.batch_size or gcfg.batch_size
     num_batches = args.num_batches or gcfg.num_batches
     os.makedirs(output_dir, exist_ok=True)
 
-    model, schedule = load_model_for_sampling(cfg, model_dir, device)
+    model, schedule = load_model_for_sampling(cfg, model_dir, device, plain=args.plain)
+    conditional = args.cond_dir is not None
+    if conditional and cfg.model.cond_channels <= 0:
+        raise SystemExit("--cond_dir given but the model has cond_channels=0")
     res = cfg.model.sample_size
     shape = (batch_size, res, res, cfg.model.out_channels)
     if sampler == "ddim":
         eta = args.eta if args.eta is not None else gcfg.ddim_eta
         fn = functools.partial(ddim_sample, eta=eta, spacing=args.spacing or "leading")
+    elif sampler in ("dpm", "sde"):
+        fn = functools.partial(dpmpp_2m_sample if sampler == "dpm" else dpmpp_2m_sde_sample,
+                               spacing=args.spacing or "trailing")
     else:
         fn = ddpm_sample
+    if conditional:
+        cond_files = sorted(glob.glob(os.path.join(args.cond_dir, "*.png")))
+        if not cond_files:
+            raise SystemExit(f"no cond rasters under {args.cond_dir}")
+        guidance = args.guidance if args.guidance is not None else gcfg.guidance_scale
 
     total = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         for num in range(num_batches):
-            x = fn(model, schedule, shape, batch_generator(args.seed, num, device), steps)
+            denoise, cond = model, None
+            if conditional:
+                cond = cond_batch(cond_files, num, batch_size, res, cfg.model.cond_channels,
+                                  device)
+                denoise = make_guided_denoise(model, cond, guidance)
+            x = fn(denoise, schedule, shape, batch_generator(args.seed, num, device), steps)
+            if cond is not None:
+                x = torch.cat([cond, x], dim=-1)  # map R/G, then the sample
             imgs = quantize(x)  # copies to the host, so the batch is finished here
             if num == 0:
                 logger.info(f"first batch ({batch_size}) in {time.perf_counter() - t0:.1f}s")
+            if imgs.shape[-1] == 1:
+                imgs = imgs[..., 0]  # PIL takes no [H, W, 1] array: a gray PNG
             for i in range(imgs.shape[0]):
                 from PIL import Image
 
@@ -122,7 +174,8 @@ def main(argv=None):
                     os.path.join(output_dir, f"loop_{num:03d}_batch_{i:03d}.png"))
             total += imgs.shape[0]
     dt = time.perf_counter() - t0
-    logger.info(f"generated {total} scenes with {sampler}-{steps} on {device} in {dt:.1f}s "
+    mode = f"cfg(g={guidance})" if conditional else "uncond"
+    logger.info(f"generated {total} scenes with {sampler}-{steps} {mode} on {device} in {dt:.1f}s "
                 f"({total / dt:.3f} scenes/s)")
     return total / dt
 

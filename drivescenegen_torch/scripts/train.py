@@ -3,7 +3,7 @@ device).
 
   python -m drivescenegen_torch.scripts.train --cfg_file cfg.yaml \
       [--dataset_glob 'imgs/*.png'] [--output_dir out] [--resume] \
-      [--max_steps N] [--device cpu]
+      [--max_steps N] [--device cpu] [--plain]
 
 AdamW with a cosine-warmup lr, bf16 activations over f32 params, the
 attention's forward and backward kernels on the card (training/trainer.py).
@@ -13,6 +13,11 @@ log_every steps, and at each epoch end a full-state checkpoint
 which the generation CLI samples from, and a sample PNG (samples/NNN.png;
 DDIM when eval_inference_steps <= 100, else DDPM). A file <output_dir>/STOP
 ends the run at the next log line, after a checkpoint and an export.
+A conditional model (cond_channels > 0) reads cond_channels +
+in_channels channels of each image, the conditioning first, and trains
+with cond-dropout; its eval samples are unconditional, as in the JAX
+package. --plain builds both models on PyTorch's library ops, for a model
+outside the kernels' limits (models/unet2d.py kernel_limit_errors).
 Raw PNG datasets are uint8 and normalized on the device; with
 device_data "on", or "auto" within device_data_budget_gb, the whole corpus
 is uploaded once and each step gathers its batch on the device.
@@ -25,6 +30,7 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 from drivescenegen_torch import ops
@@ -37,7 +43,6 @@ from drivescenegen_torch.data.dataset import (
 )
 from drivescenegen_torch.diffusion import ddim_sample, ddpm_sample, make_schedule
 from drivescenegen_torch.models import UNet2D
-from drivescenegen_torch.scripts.generation import quantize
 from drivescenegen_torch.training import create_optimizer, init_train_state, make_train_step
 from drivescenegen_torch.training.checkpoint import (
     latest_step,
@@ -55,14 +60,17 @@ logger = get_logger("train")
 def save_sample_image(model, schedule, cfg, out_dir: str, seed: int, sampler: str = "ddpm",
                       steps: int = 750) -> str:
     """One eval sample from `model` (its weights already loaded), saved as
-    the next samples/NNN.png (drivescenegen_tpu/scripts/train.py:53-84)."""
+    the next samples/NNN.png (drivescenegen_tpu/scripts/train.py:53-84).
+    The image is truncated to uint8, (x01 * 255).astype(uint8), as the JAX
+    package's eval image is; the generation CLIs round."""
     from PIL import Image
 
     shape = (1, cfg.model.sample_size, cfg.model.sample_size, cfg.model.out_channels)
     fn = ddpm_sample if sampler == "ddpm" else ddim_sample
     gen = prng.root_generator(seed, schedule.device)
     with torch.no_grad():
-        img = quantize(fn(model, schedule, shape, gen, steps))[0]
+        x = fn(model, schedule, shape, gen, steps)
+    img = (np.clip(x[0].float().cpu().numpy() / 2 + 0.5, 0, 1) * 255).astype(np.uint8)
     if img.shape[-1] == 1:
         img = img[..., 0]
     os.makedirs(out_dir, exist_ok=True)
@@ -81,6 +89,9 @@ def main(argv=None):
     parser.add_argument("--max_steps", default=0, type=int,
                         help="cap total optimizer steps (0 = epochs * steps/epoch)")
     parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--plain", action="store_true",
+                        help="run PyTorch's library ops instead of the CUDA kernels, for a "
+                             "model outside their limits")
     for later in ("--init_from", "--profile_steps", "--supervise"):
         parser.add_argument(later, default=None, help="not in the port yet")
     args = parser.parse_args(argv)
@@ -95,16 +106,13 @@ def main(argv=None):
         overrides["train"]["output_dir"] = args.output_dir
     cfg = load_config(args.cfg_file, overrides)
     tcfg = cfg.train
-    if cfg.model.cond_channels > 0:
-        raise SystemExit("conditional training (cond_channels > 0) comes with the next slice of "
-                         "the port")
     device = resolve_device(args.device)
     os.makedirs(tcfg.output_dir, exist_ok=True)
     save_config(cfg, os.path.join(tcfg.output_dir, "config.yaml"))
     writer = MetricWriter(os.path.join(tcfg.output_dir, "logs"))
     configure_file_logging(os.path.join(tcfg.output_dir, "logs"))
 
-    n_channels = cfg.model.in_channels
+    n_channels = cfg.model.in_channels + cfg.model.cond_channels
     dataset = RasterDataset(tcfg.dataset_glob, img_res=cfg.model.sample_size,
                             n_channels=n_channels, cache=tcfg.cache_dataset, raw="auto")
     if len(dataset) < tcfg.batch_size:
@@ -114,7 +122,7 @@ def main(argv=None):
     total_steps = args.max_steps or steps_per_epoch * tcfg.num_epochs
     logger.info(f"dataset: {len(dataset)} samples, {steps_per_epoch} steps/epoch on {device}")
 
-    model = UNet2D(cfg.model, device=device, for_training=True,
+    model = UNet2D(cfg.model, device=device, for_training=True, plain=args.plain,
                    generator=prng.for_purpose(tcfg.seed, "init", device))
     schedule = make_schedule(cfg.diffusion, device=device)
     optimizer, lr_sched = create_optimizer(tcfg, total_steps, model.parameters())
@@ -125,8 +133,9 @@ def main(argv=None):
         state = restore_checkpoint(ckpt_dir, state)
         logger.info(f"resumed from step {state.step}")
     step_fn = make_train_step(schedule, lr_sched, tcfg)
-    # The sampling arm, for the eval images: the export's weights, kernels.
-    eval_model = UNet2D(cfg.model, device=device).eval()
+    # The sampling arm, for the eval images: the export's weights, the kernels
+    # (library ops under --plain).
+    eval_model = UNet2D(cfg.model, device=device, plain=args.plain).eval()
 
     if tcfg.device_data == "hybrid":
         raise SystemExit("device_data: hybrid (resident pool + streamed tail) comes with a later "

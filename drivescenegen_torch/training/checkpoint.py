@@ -5,7 +5,11 @@ A checkpoint is <directory>/step_<NNNNNNNN>.pt, a torch.save of the
 params, the optimizer state, the step and the EMA; the newest
 `max_to_keep` are kept, so a resume continues the exact run. The weights
 for sampling are exported as <output_dir>/params.npz, the flat flax tree
-(models/convert.py), which both packages' generation CLIs read.
+(models/convert.py), which the port's generation CLI reads. The JAX
+package's generation CLI reads only orbax <model_dir>/params
+(drivescenegen_tpu/scripts/generation.py:68-74), so weights do not pass
+between the two packages' CLIs without a conversion that neither package
+holds yet.
 """
 
 from __future__ import annotations

@@ -2,9 +2,13 @@
 drivescenegen_tpu/training/trainer.py:36-156).
 
 Per step, as the JAX step: noise ~ N(0, I), t ~ U[0, T), x_t =
-add_noise(x0, noise, t); loss = MSE(model(x_t, t), noise) in f32;
+add_noise(x0, noise, t); loss = MSE(model(x_t, t, cond), noise) in f32;
 gradients clipped to a global norm; AdamW with a linear-warmup cosine
 learning rate; optionally an EMA of the parameters with a decay warmup.
+A conditional model (cond_channels > 0) splits each batch by channel, the
+conditioning first (map R/G) and the diffusion target after (agent B), and
+zeroes the conditioning of a sample with probability cond_dropout, which
+trains the null branch of classifier-free guidance (diffusion/cfg.py).
 
 optax is matched operation for operation, not just nearly:
 - `clip_by_global_norm` scales by max/norm only when norm >= max, with no
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from drivescenegen_torch.config import TrainConfig
+from drivescenegen_torch.diffusion.cfg import apply_cond_dropout
 from drivescenegen_torch.diffusion.schedule import DiffusionSchedule
 from drivescenegen_torch.models.unet2d import UNet2D
 from drivescenegen_torch.utils import prng
@@ -102,50 +107,63 @@ def normalize_batch(batch: torch.Tensor) -> torch.Tensor:
 
 
 def diffusion_loss(model: UNet2D, schedule: DiffusionSchedule, target: torch.Tensor,
-                   noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """MSE between the model's eps at x_t = add_noise(target, noise, t) and
-    the noise, in f32."""
-    eps_hat = model(schedule.add_noise(target, noise, t), t)
+                   noise: torch.Tensor, t: torch.Tensor,
+                   cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE between the model's eps at x_t = add_noise(target, noise, t)
+    (conditioned on `cond`, if given) and the noise, in f32."""
+    eps_hat = model(schedule.add_noise(target, noise, t), t, cond)
     return torch.mean((eps_hat.float() - noise) ** 2)
 
 
 def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], float],
                     cfg: TrainConfig) -> Callable:
-    """Returns step(state, batch, noise=None, t=None) -> (state, metrics).
+    """Returns step(state, batch, noise=None, t=None, keep=None) ->
+    (state, metrics).
 
     `batch` is [B, H, W, C] uint8 (normalized on the device) or float in
-    [-1, 1]. `noise` and `t` are drawn from the step's generator
-    (utils/prng.py: the run's "train" seed folded with the step) when not
-    given; tests hand in the JAX step's own draws. The state is updated in
-    place; metrics are loss, grad_norm (before clipping; both device
-    tensors, read without a host sync) and lr."""
+    [-1, 1]; for a conditional model C = cond_channels + in_channels, the
+    conditioning first. `noise`, `t` and the cond-dropout mask `keep` ([B]
+    bool) come from the step's generator (utils/prng.py: the run's "train"
+    seed folded with the step), in that order, when not given. When any of
+    them is missing, noise and t are both drawn and a given one is kept, so
+    the mask is always the third draw. Tests hand in the JAX step's own
+    draws. The state is updated in place;
+    metrics are loss, grad_norm (before clipping; both device tensors, read
+    without a host sync) and lr."""
     train_seed = prng.purpose_seed(cfg.seed, "train")
     ema_decay = np.float32(cfg.ema_decay)
 
-    def train_step(state: TrainState, batch: torch.Tensor, noise=None, t=None):
+    def train_step(state: TrainState, batch: torch.Tensor, noise=None, t=None, keep=None):
         model, opt = state.model, state.optimizer
         mcfg = model.cfg
-        if mcfg.cond_channels > 0:
-            raise NotImplementedError(
-                "conditional training (cond_channels > 0, diffusion/cfg.py cond-dropout) comes "
-                "with the next slice of the port")
         if mcfg.dropout > 0.0:
             raise NotImplementedError("dropout > 0 comes with a later slice of the port")
         device = schedule.device
-        target = normalize_batch(batch.to(device))
+        batch = normalize_batch(batch.to(device))
+        cond_ch = mcfg.cond_channels
+        if batch.shape[-1] != cond_ch + mcfg.in_channels:
+            raise ValueError(f"batch has {batch.shape[-1]} channels; the model takes "
+                             f"cond_channels + in_channels = {cond_ch + mcfg.in_channels}")
+        cond, target = (batch[..., :cond_ch], batch[..., cond_ch:]) if cond_ch else (None, batch)
         B = target.shape[0]
-        if noise is None or t is None:
+        drop = cond is not None and cfg.cond_dropout > 0.0
+        gen = None
+        if noise is None or t is None or (drop and keep is None):
             gen = prng.for_step(train_seed, state.step, device)
-            if noise is None:
-                noise = torch.randn(target.shape, generator=gen, device=device)
-            if t is None:
-                t = torch.randint(0, schedule.num_train_timesteps, (B,), generator=gen,
-                                  device=device)
+            # noise and t are drawn even when given, so that each draw keeps
+            # its place in the stream whatever the caller hands in.
+            noise_d = torch.randn(target.shape, generator=gen, device=device)
+            t_d = torch.randint(0, schedule.num_train_timesteps, (B,), generator=gen,
+                                device=device)
+            noise = noise_d if noise is None else noise
+            t = t_d if t is None else t
         noise = noise.to(device=device, dtype=torch.float32)
         t = t.to(device=device, dtype=torch.int64)
+        if cond is not None:
+            cond = apply_cond_dropout(cond, cfg.cond_dropout, gen, keep)
 
         opt.zero_grad(set_to_none=True)
-        loss = diffusion_loss(model, schedule, target, noise, t)
+        loss = diffusion_loss(model, schedule, target, noise, t, cond)
         loss.backward()
         params = [p for group in opt.param_groups for p in group["params"]]
         grads = [p.grad for p in params]

@@ -74,10 +74,14 @@ def test_cli_ddpm_sampler(model_dir, tmp_path):
     assert os.listdir(tmp_path) == ["loop_000_batch_000.png"]
 
 
-@pytest.mark.parametrize("extra", [["--sampler", "dpm"], ["--sampler", "sde"],
+@pytest.mark.parametrize("extra", [["--sampler", "dpm", "--cond_dir", "maps"],
+                                   ["--sampler", "sde", "--cond_dir", "maps"],
                                    ["--cond_dir", "maps"]])
 def test_cli_later_slices_exit_with_a_message(model_dir, tmp_path, extra):
-    with pytest.raises(SystemExit, match="next slice"):
+    """The DPM-Solver++ samplers and conditional mode are ported
+    (tests/test_torch_dpm_cfg.py); conditioning an unconditional model
+    exits with a message, whatever the sampler."""
+    with pytest.raises(SystemExit, match="cond_channels=0"):
         generation.main(["--model_dir", model_dir, "--output_dir", str(tmp_path),
                          "--device", "cpu", *extra])
 

@@ -244,12 +244,19 @@ def test_purpose_ids_are_the_jax_packages():
 
 
 def test_conditional_training_names_the_next_slice():
+    """Conditional training is ported (tests/test_torch_dpm_cfg.py holds it
+    to JAX): a cond_channels=2 step runs on its [cond | target] batch.
+    Dropout > 0 still names the later slice that brings it."""
     tcfg = TrainConfig(batch_size=1)
     model = UNet2D(ModelConfig(**dict(TINY, cond_channels=2)), device="cpu", for_training=True)
     opt, lr_fn = create_optimizer(tcfg, 10, model.parameters())
     step = make_train_step(make_schedule(device="cpu"), lr_fn, tcfg)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        step(init_train_state(model, opt), torch.zeros(1, 16, 16, 5))
+    state, m = step(init_train_state(model, opt), torch.zeros(1, 16, 16, 5))
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    model = UNet2D(ModelConfig(**dict(TINY, dropout=0.1)), device="cpu", for_training=True)
+    opt, lr_fn = create_optimizer(tcfg, 10, model.parameters())
+    with pytest.raises(NotImplementedError, match="later slice"):
+        step(init_train_state(model, opt), torch.zeros(1, 16, 16, 3))
 
 
 # ------------------------------------------------------------- dataset
