@@ -75,6 +75,24 @@ Phases, each printed as it runs; any failure exits non-zero:
                section) refused at construction on the card, trained
                there by the train CLI with --plain and sampled from its
                export by the generation CLI with --plain
+  12. stage 2  the lane mask -> skeleton -> bit-pack pass on the card
+               against the same pass on the CPU, bit for bit, on the
+               fixture rasters (tests/fixtures/torch_stage2/, padded to
+               8), phase 5's DDIM-50 batch and the mask's tie-break and
+               float64-boundary constructions; its device ms per batch,
+               device kernels per batch, and no host sync; the native
+               graph library built and loaded; the vectorization CLI
+               (--n_workers 2) on the fixture against the JAX package's
+               record expected.npz (graphs equal, lanes and agents within
+               1e-6) and the host's s per image; the end-to-end CLI at
+               full width (phase 6's model directory, DDIM-50, batch 8,
+               24 scenes, 2 workers): launch counts, stats, first-batch s,
+               sampling and end-to-end scenes/s beside phase 5's, PNGs
+               pixel-equal to the generation CLI's (--seed 5
+               --num_batches 3); then --resume: 3/3 batches resumed, no
+               kernel launched, the same counts
+
+About 260-300 s on an H100, builds included.
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -82,6 +100,7 @@ line, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import itertools
 import json
@@ -121,6 +140,11 @@ CLI5_STEPS, CLI5_IMAGES = 20, 128
 # values of a many-step chain can diverge from bf16 rounding alone (phase
 # 8 prints the same reading for plain bf16 against plain f32).
 MEAN_DELTA_TOL = 0.01
+# Phase 12: the end-to-end CLI's scenes (three batches of BATCH), and how
+# far the vectorization CLI's lanes and agents may sit from the JAX
+# package's record made on another machine (numpy and scipy versions may
+# differ; its graphs must be equal).
+E2E_SCENES, STAGE2_TOL = 24, 1e-6
 
 
 class SmokeFailure(Exception):
@@ -372,6 +396,189 @@ class KernelRow:
         d["launches_per_forward"] += count
 
 
+def stage2_constructions(res: int):
+    """uint8 [8, res, res, 3]: the lane mask's hard cases. Image 0: the
+    float64 boundary (R = 153 on the 128 background, |153/255 - 128/256| ==
+    0.1 in real arithmetic: lane on the host). Images 1-6: every uint8
+    value in R and in G against six background modes. Image 7: exact
+    first-max ties in both histograms."""
+    import numpy as np
+
+    imgs = np.full((8, res, res, 3), 128, np.uint8)
+    imgs[0, 3, 4, 0] = 153
+    vals = np.arange(256, dtype=np.uint8).reshape(16, 16)
+    for img, mode in zip(imgs[1:7], (0, 77, 128, 153, 204, 255)):
+        img[:] = mode
+        img[:16, :16, 0] = vals
+        img[16:32, 16:32, 1] = vals
+    half = res // 2
+    imgs[7, :half, :, 0], imgs[7, half:, :, 0] = 60, 200
+    imgs[7, :half, :, 1], imgs[7, half:, :, 1] = 200, 60
+    return imgs
+
+
+def phase_stage2(here: str, work: str, model_dir: str, q_ddim, ddim_rate: float) -> dict:
+    """Phase 12: stage 2 on the card. Returns its numbers for the summary."""
+    import glob
+    import pickle
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from drivescenegen_torch import ops
+    from drivescenegen_torch.config import VectorizeConfig
+    from drivescenegen_torch.ops import stage2
+    from drivescenegen_torch.ops.lane_mask import lane_mask_batch
+    from drivescenegen_torch.scripts import end_to_end, generation, vectorization
+    from drivescenegen_torch.vectorize import native_graph
+
+    dev = torch.device("cuda")
+    B, S0 = q_ddim.shape[:2]
+    phase(f"12 stage 2: lane mask, skeleton and bit-pack on the card; the vectorization CLI; "
+          f"the end-to-end CLI, DDIM-{STEPS}, batch {B}, {E2E_SCENES} scenes")
+    out = {}
+
+    # 12a: the device pass against the same pass on the CPU, bit for bit.
+    fixture = os.path.join(here, "tests", "fixtures", "torch_stage2")
+    fixture_pngs = sorted(glob.glob(os.path.join(fixture, "*.png")))
+    check(len(fixture_pngs) == 4, f"fixture holds {len(fixture_pngs)} PNGs, not 4")
+    rasters = np.zeros((B, S0, S0, 3), np.uint8)
+    rasters[:4] = np.stack([np.asarray(Image.open(f).convert("RGB")) for f in fixture_pngs])
+    batches = {"fixture rasters (padded)": torch.from_numpy(rasters).to(dev),
+               f"DDIM-{STEPS} batch of phase 5": q_ddim,
+               "tie-break and float64-boundary constructions":
+                   torch.from_numpy(stage2_constructions(S0)).to(dev)}
+    for name, q in batches.items():
+        mask, packed = lane_mask_batch(q), stage2.skeleton_pass(q)
+        q_cpu = q.cpu()
+        check(torch.equal(mask.cpu(), lane_mask_batch(q_cpu)), f"{name}: masks differ from the CPU's")
+        check(torch.equal(packed.cpu(), stage2.skeleton_pass(q_cpu)),
+              f"{name}: packed skeletons differ from the CPU's")
+        print(f"device pass on {name} {tuple(q.shape)}: masks ({int(mask.sum())} lane px) and packed "
+              f"skeletons {tuple(packed.shape)} ({int(np.unpackbits(packed.cpu().numpy()).sum())} px) "
+              f"bit-identical to the CPU's")
+    q = q_ddim
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stage2.skeleton_pass(q)
+        syncs = None
+    except RuntimeError as e:
+        syncs = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(syncs is None, f"the device pass syncs the host: {syncs}")
+    launches = sum(r[1] for r in device_kernels(lambda: stage2.skeleton_pass(q)))
+    pass_ms = device_ms(lambda: stage2.skeleton_pass(q), n=5)
+    pass_eager_ms = time_ms(lambda: stage2.skeleton_pass(q), 100.0, graph=False)
+    out.update(pass_device_ms=pass_ms, pass_eager_ms=pass_eager_ms, pass_launches=launches)
+    print(f"device pass, batch {B} at {S0}x{S0}: {pass_ms:.4f} ms of device time per batch "
+          f"(torch.profiler), {pass_eager_ms:.4f} ms eager with the host's enqueue (CUDA events); "
+          f"{launches} device kernels per batch; syncs the host: no")
+
+    # 12b: the vectorization CLI on the fixture, against the JAX package's
+    # record of it (numpy and scipy may differ between machines: arrays
+    # within STAGE2_TOL, graphs exact).
+    check(native_graph.available(), "the native graph library did not build or load")
+    print(f"native graph library: {native_graph.library_path().name}, loaded")
+    vec_dir = os.path.join(work, "vectorized")
+    t0 = time.perf_counter()
+    totals = vectorization.main(["--load_path", fixture, "--save_path", vec_dir, "--device",
+                                 "cuda", "--n_workers", "2"])
+    cli_s = time.perf_counter() - t0
+    check(totals["n_images"] == 4 and totals["n_ok"] == 4, f"vectorization CLI: {totals}")
+    expected = np.load(os.path.join(fixture, "expected.npz"))
+    for i in range(4):
+        with open(os.path.join(vec_dir, "graph", f"{i}_graph.pickle"), "rb") as f:
+            graph = pickle.load(f)
+        nodes = np.asarray(list(graph.nodes), np.int64).reshape(-1, 2)
+        edges = np.asarray([(*u, *v) for u, v in graph.edges], np.int64).reshape(-1, 4)
+        check(np.array_equal(nodes, expected[f"nodes_{i}"]) and
+              np.array_equal(edges, expected[f"edges_{i}"]), f"image {i}: graph differs")
+        scenario = torch.load(os.path.join(vec_dir, "vectorized", f"{i}.pkl"), weights_only=False)
+        lanes = scenario["lane"]
+        check(len(lanes) == expected["n_lanes"][i], f"image {i}: {len(lanes)} lanes")
+        worst = 0.0
+        for k, lane in enumerate(lanes):
+            ref = expected[f"lane_{i}_{k}"]
+            check(np.shape(lane) == ref.shape, f"image {i} lane {k}: shape {np.shape(lane)}")
+            worst = max(worst, float(np.abs(np.asarray(lane) - ref).max()))
+        for agents in (np.asarray(scenario["all_agent"], np.float64).reshape(-1, 9),
+                       np.load(os.path.join(vec_dir, "agent", f"{i}_agents.npy")).reshape(-1, 9)):
+            ref = expected[f"agents_{i}"]
+            check(agents.shape == ref.shape, f"image {i}: agents {agents.shape} != {ref.shape}")
+            if ref.size:
+                worst = max(worst, float(np.abs(agents - ref).max()))
+        check(worst <= STAGE2_TOL, f"image {i}: lanes/agents off by {worst} > {STAGE2_TOL}")
+        print(f"image {i}: {nodes.shape[0]} nodes, {edges.shape[0]} edges equal; "
+              f"{len(lanes)} lanes and {len(expected[f'agents_{i}'])} agents within {worst:.3g}")
+    # The host's graph passes alone, per image, warm, in this process.
+    skels = vectorization._batch_skeletonize(fixture_pngs, dev)
+    imgs = [Image.open(f).convert("RGB") for f in fixture_pngs]
+    for img, f in zip(imgs, fixture_pngs):
+        vectorization.vectorize(img, skel=skels[f], vcfg=VectorizeConfig())
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for img, f in zip(imgs, fixture_pngs):
+            vectorization.vectorize(img, skel=skels[f], vcfg=VectorizeConfig())
+    host_s = (time.perf_counter() - t0) / (3 * len(imgs))
+    out.update(vectorization_cli_s=cli_s, host_vectorize_s_per_image=host_s)
+    print(f"vectorization CLI (--n_workers 2, spawn included): {cli_s:.3f} s for 4 images; "
+          f"host graph passes per image, warm: {host_s:.5f} s")
+
+    # 12c: the end-to-end CLI at full width, and the generation CLI's PNGs.
+    e2e_dir, gen_dir = os.path.join(work, "e2e"), os.path.join(work, "gen")
+    argv = ["--model_dir", model_dir, "--output_dir", e2e_dir, "--num_scenes", str(E2E_SCENES),
+            "--batch_size", str(B), "--sampler", "ddim", "--steps", str(STEPS), "--n_workers", "2",
+            "--seed", "5", "--device", "cuda"]
+    ops.reset_launch_counts()
+    stats, timings = end_to_end.main(argv)
+    counts = ops.launch_counts()
+    n_batches = E2E_SCENES // B
+    want = {"silu_conv3x3": 44 * STEPS * n_batches, "gn_mul_add": 45 * STEPS * n_batches,
+            "silu_affine": STEPS * n_batches, "attention": STEPS * n_batches,
+            "attention_bwd_prep": 0, "attention_bwd_main": 0, "attention_bwd_dq": 0}
+    check(counts == want, f"end-to-end launch counts {counts} != {want}")
+    check(stats["n_images"] == E2E_SCENES and
+          stats["n_ok"] + stats["n_rejected"] + stats["n_failed"] == E2E_SCENES,
+          f"end-to-end stats {stats}")
+    sampling_rate = E2E_SCENES / timings["sampling_wall_s"]
+    e2e_rate = E2E_SCENES / timings["wall_time_s"]
+    out.update(e2e_first_batch_s=timings["first_batch_s"], e2e_sampling_scenes_per_s=sampling_rate,
+               e2e_scenes_per_s=e2e_rate, phase5_ddim_scenes_per_s=ddim_rate,
+               e2e_counts={k: stats[k] for k in ("n_ok", "n_rejected", "n_failed")})
+    print(f"end-to-end CLI: {E2E_SCENES} scenes, first batch {timings['first_batch_s']:.3f} s, "
+          f"sampling {sampling_rate:.4f} scenes/s, end to end {e2e_rate:.4f} scenes/s (phase 5's "
+          f"DDIM-{STEPS}: {ddim_rate:.4f} scenes/s); ok {stats['n_ok']}, rejected "
+          f"{stats['n_rejected']}, failed {stats['n_failed']}; launches {counts}")
+    generation.main(["--model_dir", model_dir, "--output_dir", gen_dir, "--sampler", "ddim",
+                     "--steps", str(STEPS), "--batch_size", str(B), "--num_batches",
+                     str(n_batches), "--seed", "5", "--device", "cuda"])
+    fused = sorted(os.listdir(os.path.join(e2e_dir, "diffusion")))
+    check(fused == sorted(os.listdir(gen_dir)) and len(fused) == E2E_SCENES,
+          f"end-to-end wrote {fused}")
+    for name in fused:
+        a = np.asarray(Image.open(os.path.join(e2e_dir, "diffusion", name)))
+        b = np.asarray(Image.open(os.path.join(gen_dir, name)))
+        check(np.array_equal(a, b), f"{name}: end-to-end and generation CLI pixels differ")
+    print(f"end-to-end PNGs: {len(fused)} pixel-equal to the generation CLI's (--seed 5 "
+          f"--num_batches {n_batches})")
+
+    # 12d: --resume reloads every batch and samples none.
+    ops.reset_launch_counts()
+    again, timings = end_to_end.main(argv + ["--resume"])
+    counts = ops.launch_counts()
+    check(timings["n_resumed"] == timings["n_batches"] == n_batches,
+          f"--resume resumed {timings['n_resumed']}/{timings['n_batches']} batches")
+    check(set(counts.values()) == {0}, f"--resume launched kernels: {counts}")
+    check(all(again[k] == stats[k] for k in ("n_images", "n_ok", "n_rejected", "n_failed")),
+          f"--resume stats {again} != {stats}")
+    print(f"--resume: {timings['n_resumed']}/{timings['n_batches']} batches resumed, no kernel "
+          f"launched, the same counts, {timings['wall_time_s']:.3f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -392,6 +599,7 @@ def main() -> int:
                                                        kernel_limit_errors, mid_attention_shape)
         from drivescenegen_torch.models.convert import save_npz, torch_to_flax
         from drivescenegen_torch.ops import build
+        from drivescenegen_torch.ops import stage2
         from drivescenegen_torch.scripts import generation
         from drivescenegen_torch.training import (create_optimizer, init_train_state,
                                                   make_train_step)
@@ -766,6 +974,8 @@ def main() -> int:
     for name, row in rows.items():
         row.d["launches"] = counts[name]
     ddim_counts = counts
+    ddim_rate = B / dt
+    q_ddim = stage2.quantize(sample)  # phase 12's device pass reads it
     del sample
 
     # Host cost per wrapper call at a tiny shape (the device work is
@@ -790,11 +1000,14 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 6
     phase("6 generation CLI")
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, work, True)
+    model_dir = os.path.join(work, "model")  # phase 12 samples from it again
+    os.makedirs(model_dir)
+    save_config(Config(model=cfg), os.path.join(model_dir, "config.yaml"))
+    save_npz(os.path.join(model_dir, "params.npz"), torch_to_flax(model.state_dict()))
     with tempfile.TemporaryDirectory() as tmp:
-        model_dir, out_dir = os.path.join(tmp, "model"), os.path.join(tmp, "out")
-        os.makedirs(model_dir)
-        save_config(Config(model=cfg), os.path.join(model_dir, "config.yaml"))
-        save_npz(os.path.join(model_dir, "params.npz"), torch_to_flax(model.state_dict()))
+        out_dir = os.path.join(tmp, "out")
         rate = generation.main(["--model_dir", model_dir, "--output_dir", out_dir, "--sampler",
                                 "ddim", "--steps", str(STEPS), "--batch_size", "2",
                                 "--num_batches", "2", "--device", "cuda"])
@@ -1389,6 +1602,9 @@ def main() -> int:
         print(f"config-1 generation CLI --plain on CUDA from that export: DPM-5, "
               f"loop_000_batch_000.png; launches {counts}")
 
+    # --------------------------------------------------------------- 12
+    stage2_numbers = phase_stage2(here, work, model_dir, q_ddim, ddim_rate)
+
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
@@ -1410,7 +1626,8 @@ def main() -> int:
                                   "config5_forward_graph_ms": fwd5_graph_ms,
                                   "config5_train_step": {k: tr5[k] for k in (
                                       "med_ms", "step_ms", "samples_per_s", "idle", "peak_gb")},
-                                  "config5_train_cli_seconds": cli5_s, "card": smi}}))
+                                  "config5_train_cli_seconds": cli5_s, "stage2": stage2_numbers,
+                                  "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,11 +6,22 @@ It covers the sampling path: the UNet2D epsilon model
 model's GroupNorm+SiLU+conv3x3, GroupNorm+SiLU and attention hot spots as
 kernels written by hand for sm_90a (ops/, csrc/). It also covers training
 on one GPU (training/, data/, scripts/train.py), where the attention runs
-its forward and backward kernels. Public functions keep the
+its forward and backward kernels, and stage 2 (ops/lane_mask.py,
+ops/morphology.py, vectorize/, scripts/vectorization.py and
+scripts/end_to_end.py). Public functions keep the
 JAX package's NHWC layout. Entry points run on "cuda" unless the caller
 passes device="cpu"; on a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead.
 """
 
 __version__ = "0.1.0"
-from drivescenegen_torch.models.unet2d import UNet2D  # noqa: F401,E402
+
+
+def __getattr__(name):
+    # UNet2D on first use, so that importing a torch-free module of the
+    # package (the stage-2 workers' vectorize/*) does not import torch.
+    if name == "UNet2D":
+        from drivescenegen_torch.models.unet2d import UNet2D
+
+        return UNet2D
+    raise AttributeError(f"module 'drivescenegen_torch' has no attribute {name!r}")

@@ -1,5 +1,6 @@
 """The port stands alone: no module of drivescenegen_torch/ and nothing in
-chip_smoke.py imports JAX, flax, optax, orbax or the JAX package."""
+chip_smoke.py imports JAX, flax, optax, orbax or the JAX package, and no
+module of the port names a path under drivescenegen_tpu/ to read."""
 
 import ast
 from pathlib import Path
@@ -29,7 +30,11 @@ def _imports(path: Path):
 def test_the_port_has_its_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for required in ("drivescenegen_torch/config.py", "drivescenegen_torch/models/unet2d.py",
-                     "drivescenegen_torch/diffusion/samplers.py", "chip_smoke.py"):
+                     "drivescenegen_torch/diffusion/samplers.py", "chip_smoke.py",
+                     "drivescenegen_torch/scripts/end_to_end.py",
+                     "drivescenegen_torch/scripts/vectorization.py",
+                     "drivescenegen_torch/ops/morphology.py",
+                     "drivescenegen_torch/ops/lane_mask.py"):
         assert required in names
 
 
@@ -37,3 +42,35 @@ def test_the_port_has_its_modules():
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def _path_literals(path: Path):
+    """String constants other than docstrings that name a path under
+    drivescenegen_tpu/ (the package's name at the start of a path or as one
+    of its parts)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docstrings = {id(node.body[0].value) for node in ast.walk(tree)
+                  if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                       ast.AsyncFunctionDef))
+                  and node.body and isinstance(node.body[0], ast.Expr)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            text = node.value.strip()
+            if text == "drivescenegen_tpu" or text.startswith("drivescenegen_tpu/") or \
+                    "/drivescenegen_tpu" in text:
+                yield node.lineno, text
+
+
+@pytest.mark.parametrize("path", FILES[:-1], ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_package_paths(path):
+    bad = list(_path_literals(path))
+    assert not bad, f"{path.name} names paths of the JAX package: {bad}"
+
+
+def test_the_path_check_sees_a_path(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text('"""drivescenegen_tpu/ in a docstring is prose."""\n'
+                     'SRC = os.path.join(ROOT, "drivescenegen_tpu", "native")\n'
+                     'LIB = "drivescenegen_tpu/vectorize/native_graph.py"\n')
+    assert sorted(line for line, _ in _path_literals(probe)) == [2, 3]
