@@ -4,7 +4,8 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Phases, each printed as it runs; any failure exits non-zero:
-  1. device    the card's name and power limit; TF32 off for the references
+  1. device    the card's name and power limit; TF32 off for the
+               references; protobuf's version
   2. build     nvcc builds csrc/*.cu from the checkout (all at once), with
                ptxas's register/spill report; cuobjdump's SASS of each CUDA
                library must hold what its source states on its line
@@ -91,8 +92,26 @@ Phases, each printed as it runs; any failure exits non-zero:
                pixel-equal to the generation CLI's (--seed 5
                --num_batches 3); then --resume: 3/3 batches resumed, no
                kernel launched, the same counts
+  13. front end  64 rich synthetic scenes through the preprocess CLI,
+               and from a TFRecord shard of them through the native and
+               the Python reader (pickles byte-identical; both readers on
+               tests/fixtures/womd_mini.tfrecord); rasterize_scenario at
+               RasterConfig's size on the card against the CPU for every
+               scene in four variants (agents at t=1 and t=10,
+               with_agent=False, occupancy): max |delta| <= 1e-5, uint8
+               levels and flipped box-edge pixels counted and gated, two
+               card runs bit-identical, device ms and kernels per scene
+               (torch.profiler), wall ms both ways; the same on 8 dense
+               scenes that reach the 512-polyline and 128-agent buckets;
+               for both sets the buckets reached, the longest per-pixel
+               run of the splat's sum, and the box-edge pixels that
+               cos/sin on the card would flip; the rasterization CLI
+               (2 workers) on the card and with --device cpu, PNGs held
+               to each other; GT export, the vectorization CLI on the
+               card's rasters and compute_map_metrics (round trip), JSON
+               keys and finite values; the demo with --plain
 
-About 260-300 s on an H100, builds included.
+About 310-350 s on an H100, builds included.
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -145,6 +164,16 @@ MEAN_DELTA_TOL = 0.01
 # package's record made on another machine (numpy and scipy versions may
 # differ; its graphs must be equal).
 E2E_SCENES, STAGE2_TOL = 24, 1e-6
+# Phase 13: the rich synthetic scenes it preprocesses and rasterizes; the
+# card's float raster against the CPU's (the same float32 operations in
+# the same order: equal in practice), and the share of pixels that may sit
+# one uint8 level apart, or be box-edge pixels one side covers and the
+# other does not.
+FRONT_SCENES, RASTER_TOL, RASTER_PX_SHARE = 64, 1e-5, 1e-4
+# Phase 13's dense scenes: rich synthetic layouts merged with random shifts
+# until a scene reaches the 512-polyline bucket, and vehicles enough for the
+# 128-agent bucket (dense_scenario).
+DENSE_SCENES, DENSE_LAYOUTS, DENSE_VEHICLES, DENSE_SPREAD = 8, 48, 120, 25.0
 
 
 class SmokeFailure(Exception):
@@ -579,6 +608,314 @@ def phase_stage2(here: str, work: str, model_dir: str, q_ddim, ddim_rate: float)
     return out
 
 
+def raster_gate(card, cpu, agents: bool) -> dict:
+    """A card raster against the CPU's (float [H, W, C] in [0, 1]): the
+    largest |delta| off flipped box-edge pixels, and the uint8 levels the
+    rasterization CLI would write. A flipped pixel is one of the agent
+    channel that one side covers and the other does not."""
+    import numpy as np
+
+    flip = ((card[..., 2] == 0) != (cpu[..., 2] == 0)) if agents else np.zeros(card.shape[:2], bool)
+    keep = ~flip
+    levels = np.abs(np.clip(card * 255.0, 0, 255).astype(np.uint8).astype(int)
+                    - np.clip(cpu * 255.0, 0, 255).astype(np.uint8).astype(int))
+    return dict(max_abs=float(np.abs(card - cpu)[keep].max(initial=0.0)),
+                max_level=int(levels[keep].max(initial=0)),
+                one_level_px=int((levels[keep] > 0).any(axis=-1).sum()),
+                flipped_px=int(flip.sum()), px=int(flip.size))
+
+
+def check_raster_totals(name: str, t: dict, floats: bool = True) -> None:
+    """Phase 13's gates on summed raster_gate readings; floats=False for
+    rasters read back from PNGs, which hold uint8 levels only."""
+    if floats:
+        check(t["max_abs"] <= RASTER_TOL,
+              f"{name}: card vs CPU max |delta| {t['max_abs']} > {RASTER_TOL}")
+    check(t["max_level"] <= 1, f"{name}: uint8 pixels {t['max_level']} levels apart")
+    for key in ("one_level_px", "flipped_px"):
+        check(t[key] <= RASTER_PX_SHARE * t["px"],
+              f"{name}: {t[key]} {key} of {t['px']} (limit {RASTER_PX_SHARE:.2%})")
+
+
+def dense_scenario(seed: int) -> bytes:
+    """A scene that fills the rasterizer's budgets, from a seed: the lanes of
+    DENSE_LAYOUTS rich synthetic layouts, each shifted by up to
+    DENSE_SPREAD m, so that lanes cross and overlap as at a large
+    intersection, and DENSE_VEHICLES vehicles on them, the ego (track 0) at
+    the middle of lane 0."""
+    import numpy as np
+
+    from drivescenegen_torch.data import synthetic
+    from drivescenegen_torch.data.protos import dsg_scenario_pb2
+
+    rng = np.random.default_rng(seed)
+    sc = dsg_scenario_pb2.Scenario()
+    sc.scenario_id = f"dense_{seed:08d}"
+    sc.current_time_index = 10
+    sc.timestamps_seconds.extend(t * 0.1 for t in range(91))
+    lanes = []
+    for _ in range(DENSE_LAYOUTS):
+        shift = rng.uniform(-DENSE_SPREAD, DENSE_SPREAD, size=2)
+        lanes += [(pts + shift, v) for pts, v in synthetic.synthetic_layout(rng, rich=True)]
+    offset = rng.uniform(-2000, 2000, size=2)
+    for i, (pts, _) in enumerate(lanes):
+        feat = sc.map_features.add()
+        feat.id = i + 1
+        synthetic._fill_lane(feat, pts + offset)
+    sc.sdc_track_index = 0
+    for v in range(DENSE_VEHICLES):
+        pts, speed = lanes[int(rng.integers(0, len(lanes))) if v else 0]
+        track = sc.tracks.add()
+        track.id = 1000 + v
+        synthetic._track_along_lane(track, pts + offset, speed * rng.uniform(0.0, 1.2),
+                                    start_frac=0.5 if v == 0 else float(rng.uniform(0.1, 0.9)))
+    return sc.SerializeToString()
+
+
+def raster_probe(infos, kw: dict, dev: str) -> dict:
+    """What the scenes ask of the rasterizer, read on the card in a pass of
+    their own (the readings cost syncs, so no timed pass makes them): the
+    polyline and agent buckets the splat and the agent channel see, the
+    largest number of samples that one pixel's sum adds in turn (the
+    splat's loop runs once per sample of that run), and the box-edge
+    pixels that cos/sin taken on the card would flip against the shipped
+    host cos/sin, which make card and CPU agree by construction."""
+    import numpy as np
+    import torch
+
+    from drivescenegen_torch.ops import raster
+
+    seen = dict(polylines=[], agents=[], run=[], pixels=[], samples=[], flipped_px=0,
+                headings_apart=0)
+    segment_sum, agent_channel = raster._segment_sum, raster.rasterize_agent_channel
+
+    def spy_sum(idx, vals, n):
+        counts = torch.unique(idx[vals[:, -1] != 0], return_counts=True)[1]
+        seen["run"].append(int(counts.max()) if counts.numel() else 0)
+        seen["pixels"].append(counts.numel())
+        seen["samples"].append(int(counts.sum()))
+        return segment_sum(idx, vals, n)
+
+    def spy_agents(boxes, gate, gate_valid, half_range, H, W, cos_sin):
+        host = agent_channel(boxes, gate, gate_valid, half_range, H=H, W=W, cos_sin=cos_sin)
+        card = agent_channel(boxes, gate, gate_valid, half_range, H=H, W=W)
+        card_cs = torch.stack([torch.cos(boxes[:, 4]), torch.sin(boxes[:, 4])], dim=1)
+        seen["agents"].append(boxes.shape[0])
+        seen["flipped_px"] += int(((host == 0) != (card == 0)).sum())
+        seen["headings_apart"] += int((card_cs != cos_sin).any(dim=1).sum())
+        return host
+
+    polylines = raster.mp.pad_polylines
+    raster._segment_sum, raster.rasterize_agent_channel = spy_sum, spy_agents
+    raster.mp.pad_polylines = lambda f, m, n: (seen["polylines"].append(n), polylines(f, m, n))[1]
+    try:
+        for info in infos:
+            raster.rasterize_scenario(info, device=dev, **kw)
+    finally:
+        raster._segment_sum, raster.rasterize_agent_channel = segment_sum, agent_channel
+        raster.mp.pad_polylines = polylines
+    return dict(polyline_buckets=sorted(set(seen["polylines"])),
+                agent_buckets=sorted(set(seen["agents"])), max_run=max(seen["run"]),
+                mean_run_max=float(np.mean(seen["run"])),
+                pixels_per_scene=float(np.mean(seen["pixels"])),
+                samples_per_scene=float(np.mean(seen["samples"])),
+                card_trig_flipped_px=seen["flipped_px"],
+                card_trig_headings_apart=seen["headings_apart"],
+                px=len(infos) * kw["img_res"] ** 2)
+
+
+def raster_variants(label: str, infos, kw: dict, dev: str) -> dict:
+    """rasterize_scenario on the card against the CPU for each scene in the
+    four variants: the gates, two card runs compared, wall ms both ways,
+    device ms and kernels per scene (torch.profiler); then raster_probe."""
+    import numpy as np
+
+    from drivescenegen_torch.ops.raster import rasterize_scenario
+
+    modes = {"dxdy_agents": {}, "dxdy_agents t=10": {"agent_time_index": 10},
+             "with_agent=False": {"with_agent": False}, "occupancy": {"mode": "occupancy"}}
+    n = len(infos)
+    out = {}
+    for name, extra in modes.items():
+        totals = dict(max_abs=0.0, max_level=0, one_level_px=0, flipped_px=0, px=0)
+        cpu_s = card_s = 0.0
+        same_twice = True
+        for info in infos:
+            t0 = time.perf_counter()
+            cpu = rasterize_scenario(info, device="cpu", **kw, **extra)
+            t1 = time.perf_counter()
+            card = rasterize_scenario(info, device=dev, **kw, **extra)
+            t2 = time.perf_counter()
+            cpu_s, card_s = cpu_s + t1 - t0, card_s + t2 - t1
+            same_twice &= np.array_equal(card, rasterize_scenario(info, device=dev, **kw, **extra))
+            g = raster_gate(card, cpu, agents=card.shape[-1] == 3 and "with_agent" not in extra)
+            totals = {k: (max(totals[k], g[k]) if k.startswith("max") else totals[k] + g[k])
+                      for k in totals}
+        check_raster_totals(f"rasterize_scenario {name}, {label}", totals)
+        check(same_twice, f"rasterize_scenario {name}, {label}: two card runs differ")
+        scenes = itertools.cycle(infos)
+        rows = device_kernels(lambda: rasterize_scenario(next(scenes), device=dev, **kw, **extra),
+                              n=n)
+        dev_ms = sum(r[2] for r in rows) / 1e3 / n if rows else None
+        kernels = sum(r[1] for r in rows) / n if rows else None
+        top = sorted(rows, key=lambda r: -r[2])[:3]
+        out[name] = dict(totals, card_wall_ms=card_s / n * 1e3, cpu_wall_ms=cpu_s / n * 1e3,
+                         device_ms=dev_ms, kernels_per_scene=kernels,
+                         bit_identical_twice=same_twice,
+                         top_kernels=[(k[:60], c / n, us / 1e3 / n) for k, c, us in top])
+        print(f"rasterize_scenario {name}, {label}, card vs CPU: max |delta| "
+              f"{totals['max_abs']:.3g} (tol {RASTER_TOL}), uint8 max {totals['max_level']} "
+              f"level, {totals['one_level_px']} px one level apart, {totals['flipped_px']} "
+              f"flipped box-edge px, of {totals['px']}; two card runs bit-identical: {same_twice}; "
+              f"per scene: card {card_s / n * 1e3:.2f} ms wall, "
+              + (f"{dev_ms:.4f} ms device time in {kernels:.1f} kernels (torch.profiler; most: "
+                 + "; ".join(f"{k[:40]} x{c / n:.1f} {us / 1e3 / n:.4f} ms" for k, c, us in top)
+                 + ")" if rows else "device time not measured (the profiler recorded nothing)")
+              + f"; CPU {cpu_s / n * 1e3:.2f} ms wall")
+    probe = raster_probe(infos, kw, dev)
+    out["probe"] = probe
+    print(f"rasterize_scenario, {label}: polyline buckets {probe['polyline_buckets']} of "
+          f"{kw['max_polylines']}, agent buckets {probe['agent_buckets']} of {kw['max_agents']}; "
+          f"splat: {probe['samples_per_scene']:.0f} weighted samples on "
+          f"{probe['pixels_per_scene']:.0f} pixels a scene, the longest per-pixel run "
+          f"{probe['max_run']} (mean of the scenes' longest {probe['mean_run_max']:.1f}); cos/sin "
+          f"on the card instead of the host: {probe['card_trig_headings_apart']} headings apart, "
+          f"{probe['card_trig_flipped_px']} box-edge px flipped of {probe['px']}")
+    return out
+
+
+def phase_front_end(here: str, work: str, dev: str = "cuda") -> dict:
+    """Phase 13: the data front end and the evaluation on the card. Returns
+    its numbers for the summary."""
+    import glob
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from drivescenegen_torch.config import RasterConfig
+    from drivescenegen_torch.data import native_io, tfrecord
+    from drivescenegen_torch.data.graph_export import export_scenario
+    from drivescenegen_torch.data.preprocess import decode_scenario
+    from drivescenegen_torch.data.synthetic import make_synthetic_scenario
+    from drivescenegen_torch.eval.map_metrics import STATS_NAMES
+    from drivescenegen_torch.ops.raster import rasterize_scenario
+    from drivescenegen_torch.scripts import (compute_map_metrics, data_preprocess,
+                                             data_rasterization, run_demo, vectorization)
+
+    rc = RasterConfig()
+    N = FRONT_SCENES
+    phase(f"13 front end: preprocess {N} rich synthetic scenes; the rasterizer on the card at "
+          f"{rc.img_res}x{rc.img_res}, {rc.map_range:g} m, {rc.max_polylines} polylines, "
+          f"{rc.max_agents} agents, interp_k {rc.interp_k}, against the CPU; the rasterization "
+          f"CLI; GT export, vectorization and the round-trip metrics; the demo")
+    out = {}
+    fe = os.path.join(work, "front_end")
+
+    # 13a: preprocess, synthetic and from a TFRecord shard through each reader.
+    pre = os.path.join(fe, "preprocessed")
+    t0 = time.perf_counter()
+    ids = data_preprocess.main(["--synthetic", str(N), "--synthetic_rich", "--save_path", pre])
+    rates = {"synthetic": N / (time.perf_counter() - t0)}
+    check(len(ids) == N, f"preprocess CLI wrote {len(ids)} scenes")
+    raw = os.path.join(fe, "raw")
+    os.makedirs(raw)
+    tfrecord.write_tfrecord(os.path.join(raw, "synthetic.tfrecord"),
+                            [make_synthetic_scenario(i, rich=True) for i in range(N)])
+    check(native_io.available(), "the native TFRecord reader did not build or load")
+    pickles = sorted(glob.glob(os.path.join(pre, "sample_*.pkl")))
+    for backend in ("native", "python"):
+        d = os.path.join(fe, f"pre_{backend}")
+        t0 = time.perf_counter()
+        data_preprocess.main(["--load_path", raw, "--save_path", d, "--n_workers", "1",
+                              "--backend", backend])
+        rates[backend] = N / (time.perf_counter() - t0)
+        for a in pickles:
+            with open(a, "rb") as f1, open(os.path.join(d, os.path.basename(a)), "rb") as f2:
+                check(f1.read() == f2.read(), f"{backend} reader: {os.path.basename(a)} differs")
+    fixture = os.path.join(here, "tests", "fixtures", "womd_mini.tfrecord")
+    recs = [bytes(r) for r in tfrecord.read_tfrecord(fixture, backend="native")]
+    check(recs == list(tfrecord.read_tfrecord_python(fixture)) and len(recs) == 3,
+          "womd_mini.tfrecord: the native and Python readers disagree")
+    sids = [decode_scenario(r)["scenario_id"] for r in recs]
+    out["preprocess_scenes_per_s"] = rates
+    print(f"preprocess CLI, {N} rich synthetic scenes: {rates['synthetic']:.1f} scenes/s "
+          f"(generate + decode); from a TFRecord shard of them: native reader "
+          f"({native_io.library_path().name}) {rates['native']:.1f} scenes/s, Python reader "
+          f"{rates['python']:.1f} scenes/s, pickles byte-identical; womd_mini.tfrecord: both "
+          f"readers give the same 3 records ({', '.join(sids)})")
+
+    # 13b: rasterize_scenario on the card against the CPU, every scene, every mode; then
+    # the same on dense scenes that fill the polyline and agent budgets.
+    infos = []
+    for path in pickles:
+        with open(path, "rb") as f:
+            infos.append(pickle.load(f))
+    kw = dict(img_res=rc.img_res, map_range=rc.map_range, max_polylines=rc.max_polylines,
+              max_agents=rc.max_agents, interp_k=rc.interp_k)
+    rasterize_scenario(infos[0], device=dev, **kw)  # the card's first use
+    out["raster"] = raster_variants(f"{N} rich scenes", infos, kw, dev)
+    dense = [decode_scenario(dense_scenario(seed)) for seed in range(DENSE_SCENES)]
+    out["raster_dense"] = raster_variants(
+        f"{DENSE_SCENES} dense scenes ({DENSE_LAYOUTS} rich layouts, {DENSE_VEHICLES} vehicles "
+        f"each)", dense, kw, dev)
+
+    # 13c: the rasterization CLI, 2 workers on the card, then on the CPU.
+    cli = {}
+    for d in (dev, "cpu"):
+        res = data_rasterization.main(["--load_path", pre, "--save_path",
+                                       os.path.join(fe, f"raster_{d}"), "--n_workers", "2",
+                                       "--device", d])
+        check(res["n_png"] == N, f"rasterization CLI --device {d} wrote {res['n_png']} PNGs")
+        cli[d] = res
+    png_dir = cli[dev]["out_dir"]
+    names = sorted(os.listdir(png_dir))
+    check(names == sorted(os.listdir(cli["cpu"]["out_dir"])), "the CLIs' PNG names differ")
+    totals = dict(max_abs=0.0, max_level=0, one_level_px=0, flipped_px=0, px=0)
+    for name in names:
+        a = np.asarray(Image.open(os.path.join(png_dir, name)), np.float32) / 255.0
+        b = np.asarray(Image.open(os.path.join(cli["cpu"]["out_dir"], name)), np.float32) / 255.0
+        g = raster_gate(a, b, agents=True)
+        totals = {k: (max(totals[k], g[k]) if k.startswith("max") else totals[k] + g[k])
+                  for k in totals}
+    check_raster_totals("rasterization CLI PNGs", totals, floats=False)
+    out["cli_scenes_per_s"] = {d: N / cli[d]["seconds"] for d in cli}
+    out["cli_png_totals"] = totals
+    print(f"rasterization CLI, {N} scenes, --n_workers 2 (spawn included): card "
+          f"{N / cli[dev]['seconds']:.2f} scenes/s, --device cpu {N / cli['cpu']['seconds']:.2f} "
+          f"scenes/s; PNGs card vs CPU: uint8 max {totals['max_level']} level, "
+          f"{totals['one_level_px']} px one level apart, {totals['flipped_px']} flipped px")
+
+    # 13d: GT export, the vectorization CLI on the card's rasters, round-trip metrics.
+    gt, vec = os.path.join(fe, "gt"), os.path.join(fe, "vec")
+    for i, info in enumerate(infos):
+        export_scenario(info, gt, i)
+    vstats = vectorization.main(["--load_path", png_dir, "--save_path", vec, "--n_workers", "2",
+                                 "--device", dev])
+    check(vstats["n_images"] == N and vstats["n_ok"] > 0, f"vectorization CLI: {vstats}")
+    t0 = time.perf_counter()
+    metrics = compute_map_metrics.main(["--gt_dir", gt, "--gen_dir", vec, "--map_range",
+                                        str(rc.map_range), "--map_res", str(rc.img_res)])
+    metrics_s = time.perf_counter() - t0
+    check(sorted(metrics) == sorted(["frechet", "mmd_degrees", "mmd_spectrum", "n_gt_graphs",
+                                     "n_gen_graphs", "n_gen_images", "n_rejected", "n_failed"])
+          and list(metrics["frechet"]) == STATS_NAMES, f"metrics JSON keys {sorted(metrics)}")
+    check(all(math.isfinite(v) for v in [*metrics["frechet"].values(), metrics["mmd_degrees"],
+                                         metrics["mmd_spectrum"]]), f"metrics not finite: {metrics}")
+    check(metrics["n_gt_graphs"] == N and metrics["n_gen_images"] == N
+          and metrics["n_gen_graphs"] == vstats["n_ok"], f"metrics counts {metrics}")
+    out.update(vectorization=vstats, metrics=metrics, metrics_wall_s=metrics_s)
+    print(f"round trip: {N} GT graphs exported; vectorization CLI ok {vstats['n_ok']}, rejected "
+          f"{vstats['n_rejected']}, failed {vstats['n_failed']}; compute_map_metrics "
+          f"{metrics_s:.3f} s wall: {json.dumps(metrics)}")
+
+    # 13e: the demo at its default tiny size, on the card with --plain.
+    times = run_demo.main(["--work_dir", os.path.join(fe, "demo"), "--plain", "--device", dev])
+    out["demo_stage_s"] = times
+    print("demo (--plain, default size): " + ", ".join(f"{k} {v:.2f} s" for k, v in times.items()))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -624,6 +961,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("reference computations: TF32 off for cuDNN convolutions and matmuls")
+    from google.protobuf import __version__ as protobuf_version
+    from google.protobuf.internal import api_implementation
+
+    print(f"protobuf {protobuf_version} ({api_implementation.Type()})")
 
     # ---------------------------------------------------------------- 2
     phase("2 build")
@@ -1116,6 +1457,9 @@ def main() -> int:
     di_plain_ms, _ = time_cold_ms(ops.reference_attention_di, (o, do), bnd_prep, prep_bytes)
     dq_plain_ms, _ = time_cold_ms(lambda a: ops.reference_attention_bwd_dq(a, sc), (acc,), bnd_dq,
                                   dq_bytes)
+    # Library yardstick of the pre-pass: rowsum(O·dO) in one call.
+    di_lib_ms, _ = time_cold_ms(lambda o_, do_: torch.linalg.vecdot(o_, do_, dim=-1), (o, do),
+                                bnd_prep, prep_bytes)
     # Library yardstick: SDPA's backward alone (PyTorch picks its backend;
     # the forward is excluded), by device time: its host enqueue is about
     # as long as its device time, so an eager loop would time the host.
@@ -1129,7 +1473,7 @@ def main() -> int:
     rows["attention_bwd_prep"] = KernelRow("attention_bwd_prep", "cuda", src, f"{lib_file}:273")
     rows["attention_bwd_main"] = KernelRow("attention_bwd_main", "cuda", src, f"{lib_file}:941")
     rows["attention_bwd_dq"] = KernelRow("attention_bwd_dq", "cuda", src, f"{lib_file}:1287")
-    rows["attention_bwd_prep"].add(1, e_di, m_di, prep_ms, di_plain_ms, bnd_prep)
+    rows["attention_bwd_prep"].add(1, e_di, m_di, prep_ms, di_plain_ms, bnd_prep, di_lib_ms)
     # plain_ms and library_ms of the main row are the whole backward's: no
     # plain or library call computes its outputs alone.
     rows["attention_bwd_main"].add(1, e_main, m_main, main_ms, plain_ms, bnd_main, lib_ms)
@@ -1138,7 +1482,8 @@ def main() -> int:
         "the whole backward, all three launches (plain_ms, library_ms)")
     rows["attention_bwd_dq"].add(1, e_dq, m_dq, dq_ms, dq_plain_ms, bnd_dq)
     print(f"attention_bwd {label}: pre-pass {prep_ms:.4f} ms over {prep_copies} input copies "
-          f"(warm in L2 {prep_warm:.4f}; bound {bnd_prep[0]:.4f}, {bnd_prep[1]}), main pass "
+          f"(warm in L2 {prep_warm:.4f}; bound {bnd_prep[0]:.4f}, {bnd_prep[1]}; torch.linalg.vecdot "
+          f"{di_lib_ms:.4f}), main pass "
           f"{main_ms:.4f} ms ({5 * prod / main_ms / 1e9:.1f} TFLOP/s, bound {bnd_main[0]:.4f}, "
           f"{bnd_main[1]}), dQ pass {dq_ms:.4f} ms over {dq_copies} input copies (warm in L2 "
           f"{dq_warm:.4f}; bound {bnd_dq[0]:.4f}, {bnd_dq[1]}); the three {prep_ms + main_ms + dq_ms:.4f} ms, one "
@@ -1605,6 +1950,9 @@ def main() -> int:
     # --------------------------------------------------------------- 12
     stage2_numbers = phase_stage2(here, work, model_dir, q_ddim, ddim_rate)
 
+    # --------------------------------------------------------------- 13
+    front_end_numbers = phase_front_end(here, work)
+
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
@@ -1627,6 +1975,7 @@ def main() -> int:
                                   "config5_train_step": {k: tr5[k] for k in (
                                       "med_ms", "step_ms", "samples_per_s", "idle", "peak_gb")},
                                   "config5_train_cli_seconds": cli5_s, "stage2": stage2_numbers,
+                                  "front_end": front_end_numbers,
                                   "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
     print(smi)

@@ -8,7 +8,10 @@ kernels written by hand for sm_90a (ops/, csrc/). It also covers training
 on one GPU (training/, data/, scripts/train.py), where the attention runs
 its forward and backward kernels, and stage 2 (ops/lane_mask.py,
 ops/morphology.py, vectorize/, scripts/vectorization.py and
-scripts/end_to_end.py). Public functions keep the
+scripts/end_to_end.py), and the data front end and evaluation (data/,
+ops/raster.py on the card, eval/map_metrics.py, scripts/data_preprocess.py,
+scripts/data_rasterization.py, scripts/compute_map_metrics.py and
+scripts/run_demo.py). Public functions keep the
 JAX package's NHWC layout. Entry points run on "cuda" unless the caller
 passes device="cpu"; on a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead.

@@ -5,22 +5,15 @@ Exposes find_paths / connect_paths — exact C++ ports of the Python BFS path
 recovery in vectorize/network.py (reference: vectorization/graph/
 extract_network.py:149-261).
 
-The library is built at first use by calling g++ directly (the Makefile's
-flags) into drivescenegen_torch/build/, under a name that carries a hash of
-the source and the flags. The compiler writes a temporary file, under an
-exclusive fcntl lock on build/dsg_graph.lock, and os.replace moves it to its
-name, so a process never loads a half-written library, however many build
-at once. Without a compiler, or if the build fails, the loader logs a
-warning and network.py runs its Python path.
+The library is built at first use (utils/native.py: g++ into
+drivescenegen_torch/build/ under a file lock, renamed into place). Without a
+compiler, or if the build fails, the loader logs a warning and network.py
+runs its Python path.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
-import os
-import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -28,14 +21,13 @@ from typing import List, Tuple
 
 import numpy as np
 
+from drivescenegen_torch.utils import native
 from drivescenegen_torch.utils.logging import get_logger
 
 logger = get_logger("native_graph")
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG.parent / "native" / "dsg_graph.cpp"
-BUILD_DIR = _PKG / "build"
-CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
+SOURCE = native.NATIVE_DIR / "dsg_graph.cpp"
+BUILD_DIR = native.BUILD_DIR
 
 _lib = None
 _lib_load_failed = False
@@ -43,33 +35,13 @@ _lib_lock = threading.Lock()
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libdsg_graph-{digest}.so"
+    return native.library_path(SOURCE, BUILD_DIR)
 
 
 def build() -> Path:
-    """Compile native/dsg_graph.cpp unless its library exists; returns the
-    library's path. Raises if there is no compiler or the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) on PATH")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "dsg_graph.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not out.exists():  # another process may have built it meanwhile
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            try:
-                proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                                      capture_output=True, text=True, timeout=300)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"{cxx} exited {proc.returncode}: {proc.stderr[-2000:]}")
-                os.replace(tmp, out)
-            finally:
-                tmp.unlink(missing_ok=True)
-    return out
+    """Compile the library unless it exists (utils/native.py); returns its
+    path. Raises if there is no compiler or the build fails."""
+    return native.build(SOURCE, BUILD_DIR)
 
 
 def _load():

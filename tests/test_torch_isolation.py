@@ -1,8 +1,12 @@
 """The port stands alone: no module of drivescenegen_torch/ and nothing in
 chip_smoke.py imports JAX, flax, optax, orbax or the JAX package, and no
-module of the port names a path under drivescenegen_tpu/ to read."""
+module of the port names a path under drivescenegen_tpu/ to read. At run
+time, the port's protobuf bindings load only modules of the port, even
+after the JAX package's (which put their own directory on sys.path)."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -34,7 +38,12 @@ def test_the_port_has_its_modules():
                      "drivescenegen_torch/scripts/end_to_end.py",
                      "drivescenegen_torch/scripts/vectorization.py",
                      "drivescenegen_torch/ops/morphology.py",
-                     "drivescenegen_torch/ops/lane_mask.py"):
+                     "drivescenegen_torch/ops/lane_mask.py",
+                     "drivescenegen_torch/ops/raster.py",
+                     "drivescenegen_torch/scripts/data_preprocess.py",
+                     "drivescenegen_torch/scripts/data_rasterization.py",
+                     "drivescenegen_torch/scripts/compute_map_metrics.py",
+                     "drivescenegen_torch/scripts/run_demo.py"):
         assert required in names
 
 
@@ -74,3 +83,33 @@ def test_the_path_check_sees_a_path(tmp_path):
                      'SRC = os.path.join(ROOT, "drivescenegen_tpu", "native")\n'
                      'LIB = "drivescenegen_tpu/vectorize/native_graph.py"\n')
     assert sorted(line for line, _ in _path_literals(probe)) == [2, 3]
+
+
+PROTOS_PROBE = """
+import sys
+import drivescenegen_tpu.data.protos
+from drivescenegen_tpu.data.preprocess import decode_scenario as jax_decode
+from drivescenegen_tpu.data.synthetic import make_synthetic_scenario
+before = set(sys.modules)
+import drivescenegen_torch.data.protos
+from drivescenegen_torch.data.preprocess import decode_scenario
+loaded = [m for m in set(sys.modules) - before if "pb2" in m or "protos" in m]
+print(sorted((m, getattr(sys.modules[m], "__file__", None)) for m in loaded))
+data = make_synthetic_scenario(3, rich=True)
+a, b = decode_scenario(data), jax_decode(data)
+assert a["scenario_id"] == b["scenario_id"] and a["lane"].keys() == b["lane"].keys()
+assert all((a["lane"][k] == b["lane"][k]).all() for k in a["lane"])
+assert (a["tracks_info"]["trajs"] == b["tracks_info"]["trajs"]).all()
+"""
+
+
+def test_the_ports_protos_load_the_ports_modules():
+    out = subprocess.run([sys.executable, "-c", PROTOS_PROBE], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    loaded = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    names = {m for m, _ in loaded}
+    assert {"drivescenegen_torch.data.protos", "drivescenegen_torch.data.protos.dsg_map_pb2",
+            "drivescenegen_torch.data.protos.dsg_scenario_pb2"} <= names
+    for name, path in loaded:
+        assert path is not None and Path(path).resolve().is_relative_to(PKG), (name, path)

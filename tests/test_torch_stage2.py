@@ -378,7 +378,7 @@ def test_native_library_missing_compiler_warns(tmp_path, monkeypatch):
     skel = t_vec._batch_skeletonize([str(FIXTURE_PNGS[2])], torch.device("cpu"))[str(FIXTURE_PNGS[2])]
     python_graph = network.connect_graph(skel, 4)
     monkeypatch.setattr(t_native, "_lib_load_failed", False)
-    monkeypatch.setattr(t_native, "BUILD_DIR", t_native._PKG / "build")
+    monkeypatch.setattr(t_native, "BUILD_DIR", t_native.native.BUILD_DIR)
     monkeypatch.delenv("CXX")
     assert t_native.available()
     _assert_graphs_equal(network.connect_graph(skel, 4), python_graph)
