@@ -110,8 +110,30 @@ Phases, each printed as it runs; any failure exits non-zero:
                to each other; GT export, the vectorization CLI on the
                card's rasters and compute_map_metrics (round trip), JSON
                keys and finite values; the demo with --plain
+  14. scale    config-3's training at its per-chip batch of 14 on one rank:
+               1024 synthetic scenes preprocessed (four CLI processes) and
+               rasterized with their 180-degree rotations by the CLI on the
+               card with --save_sidecar (2048 rasters of 256x256, a corpus
+               cut from ~70k); the sidecar against the PNGs' decode (equal,
+               and the time of each); array_to_device GB/s; one train step
+               over a one-rank NCCL process group against the step with
+               none on the same weights, batch and draws (bit-identical,
+               or within phase 7's gates, said which), ms per step of each
+               and the gradient all_reduce's device ms; samples/s, the
+               device's idle share and the tail's host-to-device MB a step
+               in the hybrid, resident and streamed modes (in turns, each
+               twice), the device
+               budget holding the share of the corpus config-3's 6 of
+               13.8 GB holds; a full-width step with dropout 0.1, kernels
+               against plain on the same masks, under phase 7's gates;
+               the train CLI under torchrun (1 rank, NCCL, device_data
+               auto over the budget: hybrid) from the sidecar, --init_from
+               phase 7's run, --profile_steps 3 with a trace that names the
+               attention kernels; --supervise 1 whose child this script
+               kills after its first checkpoint, resumed to rc 0; the
+               generation CLI under torchrun, byte-equal to phase 6's PNGs
 
-About 310-350 s on an H100, builds included.
+About 580-700 s on an H100, builds included; phase 14 about 260-295 s of it.
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -176,6 +198,17 @@ FRONT_SCENES, RASTER_TOL, RASTER_PX_SHARE = 64, 1e-5, 1e-4
 DENSE_SCENES, DENSE_LAYOUTS, DENSE_VEHICLES, DENSE_SPREAD = 8, 48, 120, 25.0
 
 
+# Phase 14: config-3 (drivescenegen_tpu/configs/config3_train_dp.yaml), its
+# per-chip batch of 14 on one rank. The corpus is reduced: SCALE_SCENES
+# synthetic scenes, each also rotated, against ~70k rasters, and the device
+# budget holds the share of it that config-3's 6 GB holds of its 13.8 GB.
+CONFIG3_MESH = dict(data=-1, model=1)
+CONFIG3_TRAIN = dict(batch_size=112, num_epochs=10, learning_rate=1e-5, lr_warmup_steps=500,
+                     seed=14555)
+SCALE_BATCH, SCALE_SCENES, POOL_SHARE = 14, 1024, 6.0 / 13.8
+SCALE_STEPS, SUP_STEPS = 12, 21
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -187,6 +220,14 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(name: str) -> None:
     print(f"== {name}", flush=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
 
 
 def smi_line() -> str:
@@ -382,14 +423,22 @@ def synthetic_corpus(directory: str, n: int, res: int, seed: int) -> str:
     return os.path.join(directory, "*.png")
 
 
-def run_cli(here: str, args, timeout: int = 600) -> str:
-    """python -m drivescenegen_torch.scripts.train with `args`, from the
-    repository root; returns its log (stderr), raising if it failed."""
-    cmd = [sys.executable, "-m", "drivescenegen_torch.scripts.train", *args]
+def run_module(here: str, module: str, args, nproc: int = 0, timeout: int = 600) -> str:
+    """python -m `module` with `args` from the repository root, under
+    torch.distributed.run with nproc processes when nproc > 0; returns its
+    output (stdout and stderr), raising if it failed."""
+    launcher = ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                str(nproc)] if nproc else []
+    cmd = [sys.executable, *launcher, "-m", module, *args]
     out = subprocess.run(cmd, cwd=here, capture_output=True, text=True, timeout=timeout)
     log = out.stdout + out.stderr
-    check(out.returncode == 0, f"train CLI exited {out.returncode}:\n{log[-3000:]}")
+    check(out.returncode == 0, f"{module} exited {out.returncode}:\n{log[-3000:]}")
     return log
+
+
+def run_cli(here: str, args, timeout: int = 600) -> str:
+    """The train CLI with `args` (run_module)."""
+    return run_module(here, "drivescenegen_torch.scripts.train", args, timeout=timeout)
 
 
 def logged_launches(log: str) -> dict:
@@ -916,7 +965,370 @@ def phase_front_end(here: str, work: str, dev: str = "cuda") -> dict:
     return out
 
 
+def children_of(pid: int):
+    """The pids whose parent is `pid` (/proc)."""
+    kids = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                kids.append(int(d))
+    return kids
+
+
+def phase_scale(here: str, work: str, model_dir: str, gen6_dir: str, train7_run: str,
+                train_path, rows: dict, step7_ms: float) -> dict:
+    """Phase 14: config-3's training at scale. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from drivescenegen_torch import ops
+    from drivescenegen_torch.config import Config, MeshConfig, ModelConfig, TrainConfig, save_config
+    from drivescenegen_torch.data.dataset import (RasterDataset, array_to_device, decoded_corpus,
+                                                  hybrid_index_batches, sidecar_path)
+    from drivescenegen_torch.diffusion import make_schedule
+    from drivescenegen_torch.models import UNet2D
+    from drivescenegen_torch.parallel import Mesh, make_mesh
+    from drivescenegen_torch.scripts import train as train_cli
+    from drivescenegen_torch.training import create_optimizer, init_train_state, make_train_step
+    from drivescenegen_torch.training.checkpoint import latest_step
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20261017)
+    n_rasters = 2 * SCALE_SCENES
+    phase(f"14 training at scale: config-3 at batch {SCALE_BATCH} on one rank, a {n_rasters}-"
+          f"raster corpus with its sidecar, hybrid/resident/streamed, --init_from, "
+          f"--profile_steps, --supervise, dropout, torchrun generation")
+    sc = os.path.join(work, "scale")
+    out = {"card": smi_line()}
+    t_phase = time.perf_counter()
+
+    # 14a: the corpus. Synthetic scenes preprocessed by four CLI processes,
+    # rasterized by the CLI on the card with each scene also rotated 180
+    # degrees (--augment rot180) and the sidecar written as it goes.
+    t0 = time.perf_counter()
+    per = SCALE_SCENES // 4
+    procs = [subprocess.Popen([sys.executable, "-m", "drivescenegen_torch.scripts.data_preprocess",
+                               "--synthetic", str(per), "--synthetic_offset", str(k * per),
+                               "--save_path", os.path.join(sc, f"pre{k}")], cwd=here,
+                              stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+             for k in range(4)]
+    for p_ in procs:
+        _, err = p_.communicate(timeout=600)
+        check(p_.returncode == 0, f"data_preprocess exited {p_.returncode}: {err[-2000:]}")
+    pre = os.path.join(sc, "pre")
+    os.makedirs(pre)
+    for k in range(4):
+        for f in os.listdir(os.path.join(sc, f"pre{k}")):
+            if f.startswith("sample_"):
+                os.symlink(os.path.join(sc, f"pre{k}", f), os.path.join(pre, f))
+    out["preprocess_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log = run_module(here, "drivescenegen_torch.scripts.data_rasterization",
+                     ["--load_path", pre, "--save_path", os.path.join(sc, "ras"), "--n_workers",
+                      "4", "--augment", "rot180", "--save_sidecar"])
+    out["rasterize_with_sidecar_s"] = time.perf_counter() - t0
+    img_dir = os.path.join(sc, "ras", "GT_70k_s80_dxdy_agents_img")
+    pattern = os.path.join(img_dir, "*.png")
+    ds = RasterDataset(pattern, img_res=256, n_channels=3, raw="auto")
+    check(len(ds) == n_rasters, f"the rasterization CLI wrote {len(ds)} PNGs, not {n_rasters}")
+    sidecar = sidecar_path(ds.files, 256, 3, np.uint8)
+    check(f"sidecar written: {sidecar}" in log, f"no sidecar written:\n{log[-2000:]}")
+    print(f"corpus: {SCALE_SCENES} synthetic scenes preprocessed in {out['preprocess_s']:.1f} s "
+          f"(4 processes), {n_rasters} rasters of 256x256 and the sidecar by the rasterization "
+          f"CLI (4 workers, --augment rot180 --save_sidecar) in "
+          f"{out['rasterize_with_sidecar_s']:.1f} s; sidecar {os.path.getsize(sidecar) / 1e6:.1f} MB")
+
+    # 14b: the sidecar against the decode it replaces: equal rows, and the
+    # time of each.
+    t0 = time.perf_counter()
+    full = decoded_corpus(ds)
+    out["sidecar_open_s"] = time.perf_counter() - t0
+    check(isinstance(full, np.memmap) and full.filename == os.path.abspath(sidecar),
+          "decoded_corpus did not map the rasterization CLI's sidecar")
+    t0 = time.perf_counter()
+    decoded = np.stack([ds[i] for i in range(len(ds))])
+    out["decode_s"] = time.perf_counter() - t0
+    check(np.array_equal(decoded, full), "the sidecar differs from the PNGs' decode")
+    del decoded
+    print(f"sidecar: mapped in {out['sidecar_open_s'] * 1e3:.2f} ms against {out['decode_s']:.2f} s "
+          f"to decode the {n_rasters} PNGs (one host thread); every row equal")
+
+    # 14c: array_to_device, the whole corpus in ~200 MB chunks.
+    t0 = time.perf_counter()
+    data = array_to_device(full, dev, label="phase 14 upload")
+    dt = time.perf_counter() - t0
+    idx = torch.randint(0, n_rasters, (16,), generator=gen, device=dev)
+    check(np.array_equal(data[idx].cpu().numpy(), full[idx.cpu().numpy()]),
+          "array_to_device rows differ from the sidecar's")
+    out["array_to_device_gb_per_s"] = full.nbytes / 1e9 / dt
+    print(f"array_to_device: {full.nbytes / 1e9:.4f} GB in {dt:.3f} s, "
+          f"{out['array_to_device_gb_per_s']:.3f} GB/s (sidecar mmap, pageable copies)")
+    del data
+    torch.cuda.empty_cache()
+
+    # 14d: the one-rank NCCL step against the step without a process group
+    # (phase 7's) on the same weights, batch and draws. Phase 7's config,
+    # with no lr warmup so that the step moves the parameters.
+    mcfg = ModelConfig(attention_impl="flash")
+    tcfg7 = TrainConfig(ema_decay=0.9999)
+    tcfg = dataclasses.replace(tcfg7, lr_warmup_steps=0)
+    schedule = make_schedule(device=dev)
+    weights = UNet2D(mcfg, device=dev, generator=gen).state_dict()
+    batch = torch.randint(0, 256, (SCALE_BATCH, 256, 256, 3), generator=gen,
+                          device=dev).to(torch.uint8)
+
+    def train_state(mesh):
+        m = UNet2D(mcfg, device=dev, for_training=True)
+        m.load_state_dict(weights)
+        opt, lr_fn = create_optimizer(tcfg, 1000, m.parameters())
+        return init_train_state(m, opt, ema=True), make_train_step(schedule, lr_fn, tcfg, mesh)
+
+    def one_step(mesh):
+        st, step = train_state(mesh)
+        st, met = step(st, batch)
+        torch.cuda.synchronize()
+        named = list(st.model.named_parameters())
+        return dict(loss=met["loss"].item(), gnorm=met["grad_norm"].item(),
+                    grads=torch.cat([p.grad.reshape(-1) for _, p in named]),
+                    params=torch.cat([p.detach().reshape(-1) for _, p in named]),
+                    ema=torch.cat([v.reshape(-1) for v in st.ema_params.values()]))
+
+    def step_ms(st, step):
+        for _ in range(3):
+            st, _m = step(st, batch)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            st, _m = step(st, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[len(times) // 2], times
+
+    def same(a, b):
+        return a["loss"] == b["loss"] and a["gnorm"] == b["gnorm"] and all(
+            torch.equal(a[k], b[k]) for k in ("grads", "params", "ema"))
+
+    plain_a, plain_b = one_step(None), one_step(None)
+    dist_env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                    MASTER_PORT=str(free_port()))
+    os.environ.update(dist_env)
+    try:
+        mesh = make_mesh(MeshConfig(), "cuda")
+        check(mesh.distributed and torch.distributed.get_backend() == "nccl",
+              "make_mesh under torchrun's variables did not start NCCL")
+        nccl = one_step(mesh)
+        bitwise = same(nccl, plain_a)
+        cos = torch.nn.functional.cosine_similarity(nccl["grads"], plain_a["grads"], dim=0).item()
+        print(f"one-rank NCCL step against the step without a process group: bit-identical "
+              f"(loss, grad_norm, every gradient, parameter and EMA value) {bitwise}; the plain "
+              f"step twice bit-identical {same(plain_a, plain_b)}; loss {nccl['loss']:.6f} vs "
+              f"{plain_a['loss']:.6f}, grad_norm {nccl['gnorm']:.6f} vs {plain_a['gnorm']:.6f}, "
+              f"gradient cosine {cos:.7f}")
+        if not bitwise:  # then phase 7's gates
+            check(abs(nccl["loss"] - plain_a["loss"]) <= TRAIN_LOSS_TOL * abs(plain_a["loss"])
+                  and abs(nccl["gnorm"] - plain_a["gnorm"]) <= TRAIN_GNORM_TOL * plain_a["gnorm"]
+                  and cos >= TRAIN_COS_MIN, "the NCCL step is outside phase 7's gates")
+        out.update(nccl_step_bit_identical=bitwise, plain_step_repeatable=same(plain_a, plain_b),
+                   nccl_gradient_cosine=cos)
+        del plain_a, plain_b, nccl
+        st, step = train_state(mesh)
+        out["nccl_step_ms"], out["nccl_step_ms_runs"] = step_ms(st, step)
+        rows_ = [r for r in device_kernels(lambda: step(st, batch), n=3)
+                 if "nccl" in r[0].lower()]
+        # None: no NCCL kernel in the profile (a world of one reduces in
+        # place, which launches nothing).
+        out["all_reduce_device_ms"] = sum(r[2] for r in rows_) / 1e3 / 3 if rows_ else None
+        out["all_reduce_kernels"] = sorted({r[0][:80] for r in rows_})
+        del st, step
+        torch.cuda.empty_cache()
+        st, step = train_state(None)
+        out["plain_step_ms"], out["plain_step_ms_runs"] = step_ms(st, step)
+        del st, step
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k in dist_env:
+            os.environ.pop(k, None)
+    torch.cuda.empty_cache()
+    ar = out["all_reduce_device_ms"]
+    print(f"train step at batch {SCALE_BATCH}: one-rank NCCL {out['nccl_step_ms']:.2f} ms, no "
+          f"process group {out['plain_step_ms']:.2f} ms (medians of ten after three warm-up; "
+          f"phase 7's {step7_ms:.2f} ms); the gradient all_reduce: "
+          + ("no NCCL kernel in torch.profiler's trace" if ar is None else
+             f"{ar:.4f} ms of device time a step {out['all_reduce_kernels']}"))
+
+    # 14e: the three data modes on the corpus, one process, in turns
+    # (hybrid, resident, streamed, then back): samples/s (ten steps after
+    # three warm-up), the device's idle share, and what the tail streams a
+    # step.
+    budget_gb = POOL_SHARE * full.nbytes / 1024 ** 3
+    tcfg_modes = dataclasses.replace(tcfg, batch_size=SCALE_BATCH, device_data_budget_gb=budget_gb,
+                                     seed=CONFIG3_TRAIN["seed"])
+    st, step = train_state(None)
+    n_pool = int(budget_gb * 1024 ** 3) // (256 * 256 * 3)
+    order = np.random.default_rng(tcfg_modes.seed).permutation(n_rasters)
+    pool_idx, tail_idx = np.sort(order[:n_pool]), np.sort(order[n_pool:])
+    modes = {}
+    for mode in ("hybrid", "resident", "streamed", "streamed", "resident", "hybrid"):
+        t0 = time.perf_counter()
+        next_batch, info = train_cli.batch_source(mode, ds, tcfg_modes, Mesh(device=dev))
+        setup_s = time.perf_counter() - t0
+        first = next_batch()
+        if mode == "hybrid":
+            ps, ts = next(hybrid_index_batches(n_pool, n_rasters - n_pool, SCALE_BATCH,
+                                               seed=tcfg_modes.seed))
+            want = np.concatenate([full[pool_idx[ps]], full[tail_idx[ts]]])
+            check(info["pool"] == n_pool and np.array_equal(first.cpu().numpy(), want),
+                  "the hybrid batch is not the pool's rows, then the tail's")
+        for _ in range(3):
+            st, _m = step(st, next_batch())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            st, _m = step(st, next_batch())
+        torch.cuda.synchronize()
+        sps = 10 * SCALE_BATCH / (time.perf_counter() - t0)
+        busy = profile_device(lambda: step(st, next_batch()), n=3, label=f"{mode} step", top=4)
+        m = modes.setdefault(mode, dict(samples_per_s=[], idle=[], setup_s=[], **{
+            k: v for k, v in info.items() if k != "mode"}))
+        m["samples_per_s"].append(sps)
+        m["idle"].append(None if busy is None else 1.0 - busy)
+        m["setup_s"].append(setup_s)
+        del next_batch
+        torch.cuda.empty_cache()
+    del st, step
+    torch.cuda.empty_cache()
+    hyb = modes["hybrid"]
+    for mode, m in modes.items():
+        idle = ", ".join("not measured" if x is None else f"{100 * x:.1f}%" for x in m["idle"])
+        print(f"{mode}: {', '.join(f'{x:.2f}' for x in m['samples_per_s'])} samples/s (its two "
+              f"turns), device idle {idle}, set-up {', '.join(f'{x:.2f}' for x in m['setup_s'])} s")
+    print(f"hybrid: pool {hyb['pool']} of {n_rasters} ({100 * hyb['pool'] / n_rasters:.1f}%; "
+          f"config-3's 6 GB of 13.8 GB is {100 * POOL_SHARE:.1f}%), a batch {hyb['k_res']} "
+          f"resident + {hyb['k_str']} streamed rows, {hyb['tail_bytes_per_step'] / 1e6:.4f} MB "
+          f"host to device a step")
+    out["modes"] = modes
+
+    # 14f: a full-width step with dropout 0.1, kernels against plain on the
+    # same weights, batch, noise, t and masks, under phase 7's gates.
+    noise = torch.randn(SCALE_BATCH, 256, 256, 3, generator=gen, device=dev)
+    tt_ = torch.randint(0, 1000, (SCALE_BATCH,), generator=gen, device=dev)
+    dropout = train_path(ModelConfig(attention_impl="flash", dropout=0.1), tcfg7, batch, noise,
+                         tt_, None, f"dropout 0.1, batch {SCALE_BATCH}")
+    out["dropout_step_ms"] = dropout["med_ms"]
+    del noise, batch, weights
+    torch.cuda.empty_cache()
+
+    # 14g: the train CLI under torchrun, one rank over NCCL: config-3 with
+    # device_data "auto" over its budget (hybrid), warm-started from phase
+    # 7's run, steps 2-4 traced.
+    run_cfg = Config(model=mcfg, mesh=MeshConfig(**CONFIG3_MESH))
+    run_cfg.train = dataclasses.replace(
+        TrainConfig(**CONFIG3_TRAIN), batch_size=SCALE_BATCH, device_data="auto",
+        device_data_budget_gb=budget_gb, dataset_glob=pattern, log_every=1,
+        eval_inference_steps=10, output_dir=os.path.join(sc, "run"))
+    cfg_path = os.path.join(sc, "config3.yaml")
+    save_config(run_cfg, cfg_path)
+    t0 = time.perf_counter()
+    log = run_module(here, "drivescenegen_torch.scripts.train",
+                     ["--cfg_file", cfg_path, "--max_steps", str(SCALE_STEPS), "--init_from",
+                      train7_run, "--profile_steps", "3"], nproc=1, timeout=900)
+    out["hybrid_cli_s"] = time.perf_counter() - t0
+    for want in ("mesh: {'data': 1, 'model': 1} on cuda:0 (torch.distributed)",
+                 "hybrid device data: corpus", f"decoded_corpus: using sidecar {sidecar}",
+                 f"warm-started params from {os.path.join(train7_run, 'checkpoints')}",
+                 "profiler trace of steps 2-4"):
+        check(want in log, f"the torchrun train CLI did not log {want!r}:\n{log[-3000:]}")
+    launched = logged_launches(log)
+    check(all(launched[k] == SCALE_STEPS for k in
+              ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq"))
+          and launched["attention"] >= SCALE_STEPS, f"torchrun train CLI launches {launched}")
+    for name, row in rows.items():
+        row.d["launches_by_path"][f"phase 14 torchrun train CLI, hybrid ({SCALE_STEPS} steps and "
+                                  f"a DDIM-10 eval sample)"] = launched[name]
+    traces = [os.path.join(sc, "run", "trace", f) for f in
+              os.listdir(os.path.join(sc, "run", "trace"))]
+    check(len(traces) == 1, f"--profile_steps wrote {traces}")
+    with open(traces[0]) as f:
+        trace_text = f.read()
+    named = {k: trace_text.count(k) for k in ("flash_attention_kernel", "prep_kernel",
+                                              "bwd_kernel", "dq_kernel", "nccl")}
+    check(all(named[k] for k in ("flash_attention_kernel", "prep_kernel", "bwd_kernel",
+                                 "dq_kernel")), f"the trace does not name the attention kernels: "
+                                                f"{named}")
+    records = [json.loads(ln) for ln in open(os.path.join(sc, "run", "logs", "metrics.jsonl"))]
+    out["hybrid_cli_samples_per_s"] = [r["samples_per_sec"] for r in records]
+    after = sorted(out["hybrid_cli_samples_per_s"][1:])
+    print(f"torchrun train CLI (1 rank, NCCL, hybrid, --init_from phase 7's run, "
+          f"--profile_steps 3): {SCALE_STEPS} steps in {out['hybrid_cli_s']:.1f} s wall; samples/s "
+          f"by step (the CLI's log, host clock between log lines, no sync) "
+          f"{', '.join(f'{x:.1f}' for x in out['hybrid_cli_samples_per_s'])}, median after the "
+          f"first {after[len(after) // 2]:.1f}; launches "
+          f"{launched}; trace {os.path.basename(traces[0])} ({len(trace_text) / 1e6:.1f} MB) names "
+          f"{named}")
+
+    # 14h: --supervise 1 on a 100-raster subset (7 steps an epoch): the
+    # child is killed once its first checkpoint and log line are written,
+    # and the supervisor resumes it from that checkpoint to the end.
+    sup_dir = os.path.join(sc, "supervised")
+    run_cfg.train = dataclasses.replace(run_cfg.train, dataset_glob=os.path.join(img_dir, "0_1??.png"),
+                                        output_dir=sup_dir, save_image_epochs=1000)
+    sup_cfg = os.path.join(sc, "supervised.yaml")
+    save_config(run_cfg, sup_cfg)
+    sup_log = os.path.join(sc, "supervised.log")
+    t0 = time.perf_counter()
+    with open(sup_log, "w") as logf:
+        sup = subprocess.Popen([sys.executable, "-m", "drivescenegen_torch.scripts.train",
+                                "--cfg_file", sup_cfg, "--max_steps", str(SUP_STEPS),
+                                "--supervise", "1"], cwd=here, stdout=logf,
+                               stderr=subprocess.STDOUT)
+        first_ckpt = os.path.join(sup_dir, "checkpoints", "step_00000007.pt")
+        metrics = os.path.join(sup_dir, "logs", "metrics.jsonl")
+        killed = None
+        while sup.poll() is None and time.perf_counter() - t0 < 600:
+            if killed is None and os.path.exists(first_ckpt) and os.path.exists(metrics) \
+                    and os.path.getsize(metrics) > 0:
+                kids = children_of(sup.pid)
+                check(len(kids) == 1, f"the supervisor has children {kids}")
+                os.kill(kids[0], 9)
+                killed = time.perf_counter() - t0
+            time.sleep(0.1)
+        rc = sup.wait(timeout=600)
+    sup_text = open(sup_log).read()
+    out["supervised_s"] = time.perf_counter() - t0
+    check(killed is not None, f"the supervised child ended before it was killed:\n{sup_text[-2000:]}")
+    check(rc == 0 and "relaunching WITH --resume" in sup_text and "resumed from step" in sup_text
+          and latest_step(os.path.join(sup_dir, "checkpoints")) == SUP_STEPS,
+          f"supervised run rc {rc}:\n{sup_text[-3000:]}")
+    resumed = [ln for ln in sup_text.splitlines() if "resumed from step" in ln][0]
+    print(f"--supervise 1: child killed at {killed:.1f} s (after its checkpoint at step 7), the "
+          f"supervisor probed the card and relaunched it with --resume ({resumed.split(' - ')[-1]}), "
+          f"which ended rc 0 at step {SUP_STEPS}; {out['supervised_s']:.1f} s wall")
+
+    # 14i: the generation CLI under torchrun, one rank: phase 6's PNGs.
+    gen_dir = os.path.join(sc, "gen")
+    run_module(here, "drivescenegen_torch.scripts.generation",
+               ["--model_dir", model_dir, "--output_dir", gen_dir, "--sampler", "ddim", "--steps",
+                str(STEPS), "--batch_size", "2", "--num_batches", "2", "--device", "cuda"], nproc=1)
+    names = sorted(os.listdir(gen6_dir))
+    check(sorted(os.listdir(gen_dir)) == names, f"torchrun generation wrote {os.listdir(gen_dir)}")
+    for name in names:
+        with open(os.path.join(gen_dir, name), "rb") as a, open(os.path.join(gen6_dir, name), "rb") as b:
+            check(a.read() == b.read(), f"torchrun generation {name} differs from phase 6's")
+    print(f"torchrun generation (1 rank, NCCL, DDIM-{STEPS}): {len(names)} PNGs byte-equal to phase 6's")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1347,15 +1759,14 @@ def main() -> int:
     os.makedirs(model_dir)
     save_config(Config(model=cfg), os.path.join(model_dir, "config.yaml"))
     save_npz(os.path.join(model_dir, "params.npz"), torch_to_flax(model.state_dict()))
-    with tempfile.TemporaryDirectory() as tmp:
-        out_dir = os.path.join(tmp, "out")
-        rate = generation.main(["--model_dir", model_dir, "--output_dir", out_dir, "--sampler",
-                                "ddim", "--steps", str(STEPS), "--batch_size", "2",
-                                "--num_batches", "2", "--device", "cuda"])
-        pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
-        print(f"cli: {pngs} at {rate:.4f} scenes/s")
-        check(pngs == [f"loop_{n:03d}_batch_{i:03d}.png" for n in range(2) for i in range(2)],
-              f"cli wrote {pngs}")
+    out_dir = os.path.join(work, "gen6")  # phase 14 samples the same PNGs under torchrun
+    rate = generation.main(["--model_dir", model_dir, "--output_dir", out_dir, "--sampler",
+                            "ddim", "--steps", str(STEPS), "--batch_size", "2",
+                            "--num_batches", "2", "--device", "cuda"])
+    pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    print(f"cli: {pngs} at {rate:.4f} scenes/s")
+    check(pngs == [f"loop_{n:03d}_batch_{i:03d}.png" for n in range(2) for i in range(2)],
+          f"cli wrote {pngs}")
 
     del model, schedule
     torch.cuda.empty_cache()
@@ -1629,48 +2040,48 @@ def main() -> int:
     # 7d: the train CLI as a user runs it: a seeded synthetic corpus, the
     # whole corpus on the device, ~30 steps, a resume, and the export
     # sampled by the generation CLI.
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
-        os.makedirs(data_dir)
-        t0 = time.perf_counter()
-        pattern = synthetic_corpus(data_dir, CLI_IMAGES, S0, seed=20260916)
-        print(f"cli corpus: {CLI_IMAGES} PNGs of {S0}x{S0} in {time.perf_counter() - t0:.1f} s")
-        cfg_path = os.path.join(tmp, "cfg.yaml")
-        run_cfg = Config(model=tcfg_model)
-        run_cfg.train = dataclasses.replace(tcfg, device_data="on", eval_inference_steps=10,
-                                            log_every=5, output_dir=out_dir,
-                                            dataset_glob=pattern)
-        save_config(run_cfg, cfg_path)
-        t0 = time.perf_counter()
-        log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI_STEPS)])
-        cli_s = time.perf_counter() - t0
-        records = [json.loads(ln) for ln in open(os.path.join(out_dir, "logs", "metrics.jsonl"))]
-        last = records[-1]
-        print(f"cli: {CLI_STEPS} steps in {cli_s:.1f} s wall (process start, upload, two "
-              f"checkpoints and eval samples included); last log step {last['step']} loss "
-              f"{last['loss']:.4f} at {last['samples_per_sec']:.1f} samples/s")
-        check(last["step"] == CLI_STEPS and math.isfinite(last["loss"]),
-              f"train CLI ended at {last}")
-        check(latest_step(os.path.join(out_dir, "checkpoints")) == CLI_STEPS,
-              "train CLI: no checkpoint at its last step")
-        launched = logged_launches(log)
-        check(all(launched[name] == CLI_STEPS for name in
-                  ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq")),
-              f"train CLI launches {launched}")
-        log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI_RESUME_STEPS),
-                             "--resume"])
-        check(f"resumed from step {CLI_STEPS}" in log, "train CLI --resume did not resume")
-        check(latest_step(os.path.join(out_dir, "checkpoints")) == CLI_RESUME_STEPS,
-              "train CLI --resume did not reach its max_steps")
-        print(f"cli resume: {CLI_STEPS} -> {CLI_RESUME_STEPS} steps; launches "
-              f"{logged_launches(log)}")
-        gen_dir = os.path.join(tmp, "gen")
-        generation.main(["--model_dir", out_dir, "--output_dir", gen_dir, "--sampler", "ddim",
-                         "--steps", "10", "--batch_size", "1", "--num_batches", "1",
-                         "--device", "cuda"])
-        check(os.listdir(gen_dir) == ["loop_000_batch_000.png"], "generation from the export")
-        print("cli export: the generation CLI sampled loop_000_batch_000.png (DDIM-10) from the "
-              "trained params.npz")
+    tmp = os.path.join(work, "train7")  # phase 14 warm-starts from its run
+    data_dir, out_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    os.makedirs(data_dir)
+    t0 = time.perf_counter()
+    pattern = synthetic_corpus(data_dir, CLI_IMAGES, S0, seed=20260916)
+    print(f"cli corpus: {CLI_IMAGES} PNGs of {S0}x{S0} in {time.perf_counter() - t0:.1f} s")
+    cfg_path = os.path.join(tmp, "cfg.yaml")
+    run_cfg = Config(model=tcfg_model)
+    run_cfg.train = dataclasses.replace(tcfg, device_data="on", eval_inference_steps=10,
+                                        log_every=5, output_dir=out_dir,
+                                        dataset_glob=pattern)
+    save_config(run_cfg, cfg_path)
+    t0 = time.perf_counter()
+    log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI_STEPS)])
+    cli_s = time.perf_counter() - t0
+    records = [json.loads(ln) for ln in open(os.path.join(out_dir, "logs", "metrics.jsonl"))]
+    last = records[-1]
+    print(f"cli: {CLI_STEPS} steps in {cli_s:.1f} s wall (process start, upload, two "
+          f"checkpoints and eval samples included); last log step {last['step']} loss "
+          f"{last['loss']:.4f} at {last['samples_per_sec']:.1f} samples/s")
+    check(last["step"] == CLI_STEPS and math.isfinite(last["loss"]),
+          f"train CLI ended at {last}")
+    check(latest_step(os.path.join(out_dir, "checkpoints")) == CLI_STEPS,
+          "train CLI: no checkpoint at its last step")
+    launched = logged_launches(log)
+    check(all(launched[name] == CLI_STEPS for name in
+              ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq")),
+          f"train CLI launches {launched}")
+    log = run_cli(here, ["--cfg_file", cfg_path, "--max_steps", str(CLI_RESUME_STEPS),
+                         "--resume"])
+    check(f"resumed from step {CLI_STEPS}" in log, "train CLI --resume did not resume")
+    check(latest_step(os.path.join(out_dir, "checkpoints")) == CLI_RESUME_STEPS,
+          "train CLI --resume did not reach its max_steps")
+    print(f"cli resume: {CLI_STEPS} -> {CLI_RESUME_STEPS} steps; launches "
+          f"{logged_launches(log)}")
+    gen_dir = os.path.join(tmp, "gen")
+    generation.main(["--model_dir", out_dir, "--output_dir", gen_dir, "--sampler", "ddim",
+                     "--steps", "10", "--batch_size", "1", "--num_batches", "1",
+                     "--device", "cuda"])
+    check(os.listdir(gen_dir) == ["loop_000_batch_000.png"], "generation from the export")
+    print("cli export: the generation CLI sampled loop_000_batch_000.png (DDIM-10) from the "
+          "trained params.npz")
 
     # ---------------------------------------------------------------- 8
     phase(f"8 DPM-Solver++ samplers: DPM-{DPM_STEPS} and SDE-{SDE_STEPS}, batch {B}, {S0}x{S0}")
@@ -1953,6 +2364,10 @@ def main() -> int:
     # --------------------------------------------------------------- 13
     front_end_numbers = phase_front_end(here, work)
 
+    # --------------------------------------------------------------- 14
+    scale_numbers = phase_scale(here, work, model_dir, os.path.join(work, "gen6"),
+                                os.path.join(work, "train7", "run"), train_path, rows, med_ms)
+
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
@@ -1976,6 +2391,8 @@ def main() -> int:
                                       "med_ms", "step_ms", "samples_per_s", "idle", "peak_gb")},
                                   "config5_train_cli_seconds": cli5_s, "stage2": stage2_numbers,
                                   "front_end": front_end_numbers,
+                                  "training_at_scale": scale_numbers,
+                                  "script_s": time.perf_counter() - t_main,
                                   "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
     print(smi)

@@ -1,21 +1,39 @@
-"""Training dataset: rasterized scene images -> batches (the port's copy of
-drivescenegen_tpu/data/dataset.py:21-130, :304-320, :378-389).
+"""Training dataset: rasterized scene images -> batches (the port of
+drivescenegen_tpu/data/dataset.py).
 
 Globbed image files, normalized to [-1, 1] ((x - 0.5) / 0.5), shuffled
 each epoch from a numpy rng seeded with the run's seed, so the sample
 order is the JAX package's for the same seed. In raw mode (every file a
 PNG) samples stay uint8 and the train step normalizes them on the device
-as x / 127.5 - 1. `dataset_to_device` uploads the whole uint8 corpus to
-GPU memory once, and each step then gathers its batch there by index
-(`index_batches`), so no image crosses the host link after the upload.
+as x / 127.5 - 1.
+
+The whole corpus, decoded, is one [N, H, W, C] host array
+(`decoded_corpus`), kept in a digest-keyed sidecar file beside the images
+(`sidecar_path`: the JAX package's key, so either package reads a sidecar
+the other wrote). Three ways feed the card:
+- `dataset_to_device`: the corpus uploaded once in ~200 MB chunks into one
+  preallocated tensor (`array_to_device`); each step gathers its batch
+  there by index (`index_batches`), so no image crosses the host link;
+- `hybrid_device_data` + `hybrid_index_batches`, for a corpus over the
+  device budget: a seeded budget-sized pool stays resident, the tail
+  streams from the sidecar at a fixed per-batch share;
+- `prefetch_to_device`: host batches copied `depth` ahead from pinned
+  memory on a side stream.
+
+  python -m drivescenegen_torch.data.dataset --cfg_file <yaml>
+
+prebuilds a config's sidecar on the host, touching no device.
 """
 
 from __future__ import annotations
 
+import collections
 import glob
+import logging
 import os
 import queue
 import threading
+import time
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
@@ -150,19 +168,195 @@ def index_batches(n: int, batch_size: int, seed: int = 0,
         yield idxs.astype(np.int64)
 
 
-def decoded_corpus(dataset: RasterDataset) -> np.ndarray:
+def sidecar_path(files: Sequence[str], img_res: int, n_channels: int, dtype) -> str:
+    """Digest-keyed sidecar path for a decoded corpus: the JAX package's
+    key (drivescenegen_tpu/data/dataset.py:158-176) to the character. Paths
+    are normalized, so "./imgs/*.png" and "imgs/*.png" key the same
+    corpus."""
+    import hashlib
+
+    norm = [os.path.normpath(f) for f in files]
+    digest = hashlib.sha1(
+        ("\n".join(norm) + f"|{img_res}|{n_channels}" + f"|{np.dtype(dtype)}").encode()
+    ).hexdigest()[:16]
+    return os.path.join(os.path.dirname(files[0]), f".devcache_{digest}.npy")
+
+
+def decoded_corpus(dataset: RasterDataset, chunk: int = 1024) -> np.ndarray:
     """The whole dataset as one [N, H, W, C] host array (uint8 in raw
-    mode). Decoded anew on every call: the JAX package's digest-keyed
-    sidecar file is not ported yet."""
-    first = dataset[0]
-    full = np.empty((len(dataset), *first.shape), dtype=first.dtype)
-    full[0] = first
-    for i in range(1, len(dataset)):
-        full[i] = dataset[i]
+    mode), backed by its sidecar file: a sidecar of the right shape and
+    dtype is memory-mapped; failing that, one left under an older key with
+    that shape and dtype is adopted (renamed to the current key); failing
+    that, the corpus is decoded and saved there. The decode logs each
+    chunk to the "data" logger, which the trainer's log file receives: the
+    liveness signal the train CLI's --supervise watchdog reads."""
+    n = len(dataset)
+    sample0 = dataset[0]
+    want = (n, *sample0.shape)
+    cache_path = sidecar_path(dataset.files, dataset.img_res, dataset.n_channels, sample0.dtype)
+    if os.path.exists(cache_path):
+        try:
+            m = np.load(cache_path, mmap_mode="r")
+            if m.shape == want and m.dtype == sample0.dtype:
+                print(f"decoded_corpus: using sidecar {cache_path}", flush=True)
+                return m
+        except (OSError, ValueError):
+            pass
+    cache_dir = os.path.dirname(cache_path)
+    for f in sorted(os.listdir(cache_dir) if os.path.isdir(cache_dir) else []):
+        old_path = os.path.join(cache_dir, f)
+        if not (f.startswith(".devcache_") and f.endswith(".npy")) or old_path == cache_path:
+            continue
+        try:
+            m = np.load(old_path, mmap_mode="r")
+            fits = m.shape == want and m.dtype == sample0.dtype
+            del m
+        except (OSError, ValueError):
+            continue
+        if fits:
+            os.replace(old_path, cache_path)
+            print(f"decoded_corpus: adopted old-key sidecar {old_path} -> {cache_path}",
+                  flush=True)
+            return np.load(cache_path, mmap_mode="r")
+    full = np.empty(want, dtype=sample0.dtype)
+    full[0] = sample0
+    for i in range(1, n, chunk):
+        for j in range(i, min(i + chunk, n)):
+            full[j] = dataset[j]
+        logging.getLogger("data").info(f"decoded_corpus: decoded {min(i + chunk - 1, n)}/{n}")
+        if (i - 1) % (chunk * 8) == 0:
+            print(f"decoded_corpus: decoded {min(i + chunk - 1, n)}/{n}", flush=True)
+    try:
+        np.save(cache_path, full)
+    except OSError:
+        pass  # no room for the sidecar: decode again next time
     return full
 
 
-def dataset_to_device(dataset: RasterDataset, device) -> torch.Tensor:
+def array_to_device(full: np.ndarray, device, label: str = "dataset_to_device",
+                    chunk_bytes: int = 200 * 1024 * 1024) -> torch.Tensor:
+    """A host array (often a sidecar mmap) in one tensor on `device`,
+    uploaded in chunks of about `chunk_bytes` into that tensor,
+    preallocated: never twice the array on the device, and never the whole
+    array staged at once on the host. Logs each chunk to the "data"
+    logger."""
+    t0 = time.perf_counter()
+    n = full.shape[0]
+    bytes_per = int(np.prod(full.shape[1:])) * full.dtype.itemsize
+    up_chunk = max(1, min(n, chunk_bytes // max(bytes_per, 1)))
+    data = torch.empty(full.shape, dtype=torch.from_numpy(np.empty(0, full.dtype)).dtype,
+                       device=device)
+    for i in range(0, n, up_chunk):
+        data[i:i + up_chunk].copy_(torch.from_numpy(np.array(full[i:i + up_chunk])))
+        logging.getLogger("data").info(f"{label}: uploaded {min(i + up_chunk, n)}/{n}")
+    if data.device.type == "cuda":
+        torch.cuda.synchronize(data.device)
+    dt = time.perf_counter() - t0
+    gb = n * bytes_per / 1e9
+    print(f"{label}: {n} samples ({gb:.3f} GB, {data.dtype}) in {dt:.2f}s "
+          f"({gb / max(dt, 1e-9):.3f} GB/s)", flush=True)
+    return data
+
+
+def dataset_to_device(dataset: RasterDataset, device, chunk: int = 1024) -> torch.Tensor:
     """The whole dataset as one [N, H, W, C] tensor on `device`, uploaded
     once; a step then takes its batch with data[idx]."""
-    return torch.from_numpy(decoded_corpus(dataset)).to(device)
+    return array_to_device(decoded_corpus(dataset, chunk=chunk), device)
+
+
+def hybrid_device_data(dataset: RasterDataset, device, budget_bytes: int, seed: int = 0):
+    """The resident pool of a corpus larger than the device budget: a
+    seeded random R = budget // bytes_per_sample samples uploaded once, the
+    rest left to stream from the sidecar. Returns (data_dev [R, ...],
+    pool_idx [R], tail_idx [N - R], full), the JAX function's split for the
+    same seed."""
+    full = decoded_corpus(dataset)
+    n = len(dataset)
+    bytes_per = int(np.prod(full.shape[1:])) * full.dtype.itemsize
+    r = max(1, min(n, int(budget_bytes) // max(bytes_per, 1)))
+    order = np.random.default_rng(seed).permutation(n)
+    pool_idx = np.sort(order[:r])
+    tail_idx = np.sort(order[r:])
+    pool = full[pool_idx] if r < n else full
+    data_dev = array_to_device(pool, device, label="hybrid_device_data[pool]")
+    return data_dev, pool_idx, tail_idx, full
+
+
+def hybrid_index_batches(n_pool: int, n_tail: int, batch_size: int, seed: int = 0,
+                         align: int = 1):
+    """Endless (pool_slots [k_res], tail_slots [k_str]) int32 batches with
+    fixed split sizes, shuffled per epoch so that every sample, resident
+    or streamed, is visited once per epoch (up to the dropped remainder):
+    k_str / batch_size is about n_tail / n. `align` rounds k_str up to a
+    multiple of the data axis. The JAX function's stream for the same
+    seed."""
+    n = n_pool + n_tail
+    k_str = int(round(batch_size * n_tail / n))
+    if n_tail > 0:
+        k_str = min(max(k_str, 1), batch_size - 1)
+    if align > 1 and k_str % align:
+        k_str = min(((k_str + align - 1) // align) * align, batch_size - align)
+    k_res = batch_size - k_str
+    rng = np.random.default_rng(seed)
+    while True:
+        pool_order = rng.permutation(n_pool)
+        tail_order = rng.permutation(n_tail) if n_tail else np.empty(0, np.int64)
+        n_batches = pool_order.size // k_res
+        if k_str:
+            n_batches = min(n_batches, tail_order.size // k_str)
+        for b in range(n_batches):
+            yield (pool_order[b * k_res:(b + 1) * k_res].astype(np.int32),
+                   tail_order[b * k_str:(b + 1) * k_str].astype(np.int32))
+
+
+def prefetch_to_device(iterator, device, depth: int = 2, rows: slice = slice(None)):
+    """The host batches of `iterator`, rows `rows` of each (this rank's),
+    as tensors on `device`, in order, with `depth` copies in flight ahead
+    of the consumer. On the card each copy goes from pinned host memory on
+    a side stream (non_blocking), and the consumer's stream waits on the
+    copy's event before it reads the batch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in iterator:
+            yield torch.from_numpy(np.ascontiguousarray(batch[rows])).to(device)
+        return
+    side = torch.cuda.Stream(device)
+    pending = collections.deque()
+
+    def put(batch):
+        host = torch.from_numpy(np.ascontiguousarray(batch[rows])).pin_memory()
+        with torch.cuda.stream(side):
+            dev = host.to(device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        pending.append((dev, done, host))
+
+    def take():
+        dev, done, _ = pending.popleft()
+        stream = torch.cuda.current_stream(device)
+        stream.wait_event(done)
+        dev.record_stream(stream)  # allocated on the side stream, read on this one
+        return dev
+
+    for batch in iterator:
+        put(batch)
+        if len(pending) >= depth:
+            yield take()
+    while pending:
+        yield take()
+
+
+if __name__ == "__main__":
+    import argparse
+
+    from drivescenegen_torch.config import load_config
+
+    _p = argparse.ArgumentParser(description="Prebuild a config's decoded-corpus sidecar")
+    _p.add_argument("--cfg_file", required=True, type=str)
+    _a = _p.parse_args()
+    _cfg = load_config(_a.cfg_file)
+    _ds = RasterDataset(_cfg.train.dataset_glob, img_res=_cfg.model.sample_size,
+                        n_channels=_cfg.model.in_channels + _cfg.model.cond_channels,
+                        cache=False, raw="auto")
+    _full = decoded_corpus(_ds)
+    print(f"sidecar ready: {_full.shape} {_full.dtype}")

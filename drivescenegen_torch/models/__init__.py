@@ -1,1 +1,1 @@
-from drivescenegen_torch.models.unet2d import UNet2D  # noqa: F401
+from drivescenegen_torch.models.unet2d import DropoutMasks, UNet2D  # noqa: F401

@@ -33,6 +33,14 @@ GroupNorm in f32, SiLU, a cast, the conv. The attention runs its kernel
 forward and backward (ops.AttentionFunction). The arm is a constructor
 argument, not nn.Module.training, which defaults to True and would turn
 the sampling kernels off unasked.
+
+Dropout (cfg.dropout > 0) acts in the training arm only, between each
+ResnetBlock's norm2+SiLU and conv2, as x / keep where its keep mask is set
+and 0 elsewhere (drivescenegen_tpu/models/unet2d.py:249-252), with the
+masks of a DropoutMasks handed to forward. The sampling arm is
+deterministic, so dropout there is the identity: it keeps the fused
+gn_silu_conv3x3 kernel, which computes the function the JAX module's
+unfused path at dropout > 0 (:209) computes when deterministic.
 """
 
 from __future__ import annotations
@@ -147,6 +155,38 @@ def group_norm_silu_nhwc(x, norm: Norm, groups: int):
     return F.silu(h).to(x.dtype).permute(0, 2, 3, 1)
 
 
+class DropoutMasks:
+    """The keep masks of one training-arm forward, one per ResnetBlock in
+    forward order (down blocks, mid_res_0, mid_res_1, up blocks). Either
+    handed in (`masks`, bool tensors of the blocks' activation shapes: the
+    tests pass the JAX module's own), or drawn from `generator` as
+    uniform < 1 - rate at the global batch `batch` (the shape of the
+    activation with its batch dim replaced) and cut to this rank's `rows`,
+    so that every rank of a data-parallel step draws the same numbers.
+    `drawn` counts the masks used."""
+
+    def __init__(self, rate: float, generator: Optional[torch.Generator] = None,
+                 masks: Optional[List[torch.Tensor]] = None, batch: Optional[int] = None,
+                 rows: slice = slice(None)):
+        if (generator is None) == (masks is None):
+            raise ValueError("DropoutMasks takes a generator or the masks, not both")
+        self.keep = 1.0 - rate
+        self.generator, self.masks, self.batch, self.rows = generator, masks, batch, rows
+        self.drawn = 0
+
+    def apply(self, h: torch.Tensor) -> torch.Tensor:
+        """h / keep where the next mask is set, 0 elsewhere (flax's
+        lax.select(mask, h / keep, 0)), in h's dtype."""
+        if self.masks is not None:
+            mask = self.masks[self.drawn].to(h.device)
+        else:
+            shape = (self.batch or h.shape[0],) + tuple(h.shape[1:])
+            u = torch.rand(shape, generator=self.generator, device=self.generator.device)
+            mask = (u < self.keep)[self.rows].to(h.device)
+        self.drawn += 1
+        return torch.where(mask, h / self.keep, torch.zeros_like(h))
+
+
 def _same_pad(n: int, k: int = 3, s: int = 2):
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
@@ -189,7 +229,8 @@ class ResnetBlock(nn.Module):
         return fn(x.contiguous(), norm.weight, norm.bias, conv.cast("weight", x.dtype),
                   conv.bias, self.groups, GN_EPS)
 
-    def forward(self, x, temb, skip: Optional[torch.Tensor] = None):
+    def forward(self, x, temb, skip: Optional[torch.Tensor] = None,
+                dropout: Optional[DropoutMasks] = None):
         if skip is None:
             h = self._gn_conv(x, self.norm1, self.conv1)
         else:
@@ -200,7 +241,11 @@ class ResnetBlock(nn.Module):
             h = (conv_nhwc(ha, w[:, :ca], None) + conv_nhwc(hb, w[:, ca:], None)
                  + self.conv1.cast("bias", x.dtype))
         h = h + self.time_proj(F.silu(temb))[:, None, None, :]
-        h = self._gn_conv(h, self.norm2, self.conv2)
+        if self.for_training and dropout is not None:
+            h = dropout.apply(group_norm_silu_nhwc(h, self.norm2, self.groups))
+            h = conv_module(h, self.conv2)
+        else:
+            h = self._gn_conv(h, self.norm2, self.conv2)
         if hasattr(self, "shortcut"):
             if skip is None:
                 x = conv_module(x, self.shortcut)
@@ -360,6 +405,8 @@ class UNet2D(nn.Module):
     optional [B, H, W, C_cond], concatenated to the input (zeros when None
     and cfg.cond_channels > 0). for_training selects the arm the train step
     differentiates (module docstring); the default is the sampling arm.
+    `dropout` (DropoutMasks) masks the training arm's ResnetBlocks; None,
+    or the sampling arm, is deterministic.
 
     Weights are drawn at construction from `generator` (flax-like init:
     lecun-normal kernels, zero biases, unit norm scales); pass a seeded
@@ -426,7 +473,8 @@ class UNet2D(nn.Module):
                 fan_in = p[0].numel()
                 p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
 
-    def forward(self, x, t, cond: Optional[torch.Tensor] = None):
+    def forward(self, x, t, cond: Optional[torch.Tensor] = None,
+                dropout: Optional[DropoutMasks] = None):
         cfg = self.cfg
         dt = self.dtype
         ch = tuple(cfg.block_out_channels)
@@ -445,24 +493,24 @@ class UNet2D(nn.Module):
         skips = [h]
         for i in range(n):
             for j in range(cfg.layers_per_block):
-                h = getattr(self, f"down_{i}_res_{j}")(h, temb)
+                h = getattr(self, f"down_{i}_res_{j}")(h, temb, dropout=dropout)
                 skips.append(h)
             if i != n - 1:
                 h = getattr(self, f"down_{i}_downsample")(h)
                 skips.append(h)
 
-        h = self.mid_res_0(h, temb)
+        h = self.mid_res_0(h, temb, dropout=dropout)
         h = self.mid_attn(h)
-        h = self.mid_res_1(h, temb)
+        h = self.mid_res_1(h, temb, dropout=dropout)
 
         for i in range(n):
             for j in range(cfg.layers_per_block + 1):
                 skip = skips.pop()
                 block = getattr(self, f"up_{i}_res_{j}")
                 if cfg.split_skip_conv:
-                    h = block(h, temb, skip=skip)
+                    h = block(h, temb, skip=skip, dropout=dropout)
                 else:
-                    h = block(torch.cat([h, skip], dim=-1), temb)
+                    h = block(torch.cat([h, skip], dim=-1), temb, dropout=dropout)
             if i != n - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
 

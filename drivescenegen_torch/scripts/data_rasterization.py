@@ -6,6 +6,13 @@ rasterizer is the analytic splatter of ops/raster.py, rendering directly at
 the training resolution, on --device (the card unless `--device cpu`). Each
 spawned worker runs its own scenes' splats on that device.
 
+--save_sidecar also writes the decoded-corpus sidecar the trainer reads
+(data/dataset.py sidecar_path), so training never decodes the PNGs: the
+output names are known before rasterizing, so every image's row in the
+sorted corpus is too, and the workers write their rows of one memmap. The
+file is promoted to its key only if the PNG set is the expected one and 8
+random rows equal their PNGs' decode (_finalize_sidecar). RGB modes only.
+
   python -m drivescenegen_torch.scripts.data_rasterization \
       --load_path ./data/preprocessed --save_path ./data/rasterized
 """
@@ -26,7 +33,7 @@ from drivescenegen_torch.utils.io import split_round_robin
 
 
 def _worker(files, cfg_raster, out_dir, proc_id, vec_dir=None, augment="", device="cuda",
-            threads=0):
+            threads=0, sidecar=None):
     import torch
     from PIL import Image
 
@@ -36,6 +43,9 @@ def _worker(files, cfg_raster, out_dir, proc_id, vec_dir=None, augment="", devic
         # Workers share the host's cores: each takes its share, or their
         # spinning thread pools stall one another (~8x slower on the CPU).
         torch.set_num_threads(threads)
+    # (memmap path, {suffix: [global row of file i]}): this worker's rows of
+    # the sidecar, written while the uint8 image is in memory.
+    smm = None
 
     def _render(scenario_info):
         img = rasterize_scenario(
@@ -71,6 +81,12 @@ def _worker(files, cfg_raster, out_dir, proc_id, vec_dir=None, augment="", devic
                 variants.append(("_rot", rotate_scenario_180(scenario_info)))
             for sfx, info in variants:
                 arr = _render(info)
+                if sidecar is not None and arr.ndim == 3 and arr.shape[-1] == 3:
+                    if smm is None:
+                        smm = np.load(sidecar[0], mmap_mode="r+")
+                    # Byte-equal to the PNG's decode (lossless 8-bit RGB;
+                    # _finalize_sidecar checks rows).
+                    smm[sidecar[1][sfx][i]] = arr
                 if arr.shape[-1] == 1:
                     arr = arr[..., 0]  # occupancy mode saves grayscale
                 Image.fromarray(arr).save(
@@ -104,7 +120,10 @@ def main(argv=None):
     parser.add_argument("--save_vector_tensor", action="store_true",
                         help="also save the padded vector-map tensor per "
                              "scenario (reference save_png_polys branch)")
-    parser.add_argument("--save_sidecar", action="store_true", help="not in the port yet")
+    parser.add_argument("--save_sidecar", action="store_true",
+                        help="also write the decoded-corpus sidecar (data/dataset.py "
+                             "sidecar_path) at rasterization time, so training never decodes "
+                             "the PNGs (RGB modes only)")
     parser.add_argument("--augment", default="", choices=["", "rot180"],
                         help="rot180: additionally rasterize each scenario "
                              "rotated 180 degrees (doubles the corpus; "
@@ -112,9 +131,6 @@ def main(argv=None):
                              "data/augment.py)")
     parser.add_argument("--device", default="cuda", type=str)
     args = parser.parse_args(argv)
-    if args.save_sidecar:
-        raise SystemExit("--save_sidecar (the decoded-corpus sidecar of the hybrid dataset) "
-                         "comes with a later slice of the port")
 
     from drivescenegen_torch.utils.device import resolve_device
 
@@ -134,18 +150,44 @@ def main(argv=None):
     if not all_files:
         raise SystemExit(f"no scenario pickles under {args.load_path}")
 
+    if args.save_sidecar and raster.mode == "occupancy":
+        # The sidecar is a 3-channel corpus cache; a 1-channel mode would
+        # allocate a multi-GB memmap the workers never write.
+        raise SystemExit("--save_sidecar requires an RGB raster mode; "
+                         f"raster.mode={raster.mode!r} renders 1 channel")
+
     t0 = time.perf_counter()
     n_workers = max(1, min(args.n_workers, len(all_files)))
+    shards = [all_files] if n_workers == 1 else split_round_robin(all_files, n_workers)
+    sidecars = [None] * len(shards)
+    if args.save_sidecar:
+        from drivescenegen_torch.data.dataset import sidecar_path
+
+        suffixes = [""] + (["_rot"] if args.augment == "rot180" else [])
+        named = sorted((os.path.join(out_dir, f"{pid}_{i}{sfx}.png"), pid, i, sfx)
+                       for pid, shard in enumerate(shards) for i in range(len(shard))
+                       for sfx in suffixes)
+        expected = [t[0] for t in named]
+        row_of = {(pid, i, sfx): row for row, (_, pid, i, sfx) in enumerate(named)}
+        cache_path = sidecar_path(expected, raster.img_res, 3, np.uint8)
+        sidecar_tmp = cache_path + ".tmp"
+        m = np.lib.format.open_memmap(sidecar_tmp, mode="w+", dtype=np.uint8,
+                                      shape=(len(expected), raster.img_res, raster.img_res, 3))
+        del m  # the workers reopen it r+ and fill disjoint rows
+        sidecars = [(sidecar_tmp, {sfx: [row_of[(pid, i, sfx)] for i in range(len(shard))]
+                                   for sfx in suffixes})
+                    for pid, shard in enumerate(shards)]
     if n_workers == 1:
-        _worker(all_files, raster, out_dir, 0, vec_dir, args.augment, device)
+        _worker(all_files, raster, out_dir, 0, vec_dir, args.augment, device,
+                sidecar=sidecars[0])
     else:
         # spawn, not fork: the parent may hold a CUDA context.
         ctx = multiprocessing.get_context("spawn")
         threads = max(1, (os.cpu_count() or 1) // n_workers)
         procs = []
-        for pid, shard in enumerate(split_round_robin(all_files, n_workers)):
+        for pid, shard in enumerate(shards):
             p = ctx.Process(target=_worker, args=(shard, raster, out_dir, pid, vec_dir,
-                                                  args.augment, device, threads))
+                                                  args.augment, device, threads, sidecars[pid]))
             p.start()
             procs.append(p)
         for p in procs:
@@ -153,7 +195,38 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n = len(glob.glob(os.path.join(out_dir, "*.png")))
     print(f"Rasterized {n} scenarios in {dt:.1f}s -> {out_dir}")
-    return {"out_dir": out_dir, "n_png": n, "seconds": dt}
+    result = {"out_dir": out_dir, "n_png": n, "seconds": dt}
+    if args.save_sidecar:
+        result["sidecar"] = _finalize_sidecar(out_dir, raster.img_res, expected, sidecar_tmp,
+                                              cache_path)
+    return result
+
+
+def _finalize_sidecar(out_dir, img_res, expected, sidecar_tmp, cache_path):
+    """Promote the rasterization-time sidecar to its key only if it is what
+    decoded_corpus would build: the PNG set on disk must be the expected
+    list (a failed worker leaves a hole and shifts the sorted rows), and 8
+    random rows must equal their PNGs' decode. Returns the sidecar's path,
+    or None when it was discarded."""
+    from drivescenegen_torch.data.dataset import RasterDataset
+
+    actual = sorted(glob.glob(os.path.join(out_dir, "*.png")))
+    ok = [os.path.normpath(a) for a in actual] == [os.path.normpath(e) for e in expected]
+    if ok:
+        ds = RasterDataset(os.path.join(out_dir, "*.png"), img_res=img_res, n_channels=3,
+                           raw=True)
+        m = np.load(sidecar_tmp, mmap_mode="r")
+        idxs = np.random.default_rng(0).choice(len(actual), size=min(8, len(actual)),
+                                               replace=False)
+        ok = all(np.array_equal(m[int(i)], ds[int(i)]) for i in idxs)
+        del m
+    if ok:
+        os.replace(sidecar_tmp, cache_path)
+        print(f"sidecar written: {cache_path}")
+        return cache_path
+    os.remove(sidecar_tmp)
+    print("sidecar discarded (PNG set / row mismatch); decoded_corpus will rebuild it by decode")
+    return None
 
 
 if __name__ == "__main__":

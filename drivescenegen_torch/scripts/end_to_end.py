@@ -19,6 +19,14 @@ num)), and the skeletons equal what scripts/vectorization.py derives from
 the saved files. --resume reloads a batch whose PNGs are all on disk and
 runs only the mask/skeleton/pack pass for it.
 
+Batch-parallel under torchrun (parallel/mesh.py), as the generation CLI:
+the batch rounded to the data axis, every rank sampling its rows of batch
+`num`'s global draws and running the device pass on them. Rank 0 gathers
+the quantized pixels and packed skeletons of every rank (all_gather) and
+alone runs the host side (PNG encode, graph passes, stats), exactly as
+one process does; a batch it resumes from disk it runs alone, and it
+tells the other ranks so (a broadcast flag per batch).
+
   python -m drivescenegen_torch.scripts.end_to_end --model_dir <dir> \
       --output_dir <dir> --num_scenes 5000 --n_workers 2 [--device cpu] [--plain]
 """
@@ -118,19 +126,28 @@ def main(argv=None):
         dpmpp_2m_sde_sample,
     )
     from drivescenegen_torch.ops.stage2 import quantize, skeleton_pass
-    from drivescenegen_torch.scripts.generation import batch_generator, load_model_for_sampling
-    from drivescenegen_torch.utils.device import resolve_device
+    from drivescenegen_torch.parallel import make_mesh
+    from drivescenegen_torch.scripts.generation import (
+        batch_generator,
+        load_model_for_sampling,
+        rounded_batch,
+        row_draws,
+    )
 
     cfg = load_config(args.cfg_file)
     vcfg = cfg.vectorize
     refuse_unsupported(cfg.model)
-    device = resolve_device(args.device)
+    mesh = make_mesh(cfg.mesh, args.device)
+    device = mesh.device
     model, schedule = load_model_for_sampling(
         cfg, args.model_dir or cfg.generation.model_dir, device, plain=args.plain
     )
     refuse_unsupported(cfg.model)  # the model section spliced from the model dir
     res = cfg.model.sample_size
-    batch = args.batch_size
+    batch = rounded_batch(args.batch_size, mesh.shape["data"])
+    if batch != args.batch_size:
+        logger.info(f"rounded batch to {batch} (data axis {mesh.shape['data']})")
+    rows = mesh.rows(batch)
     steps = args.steps or (
         cfg.generation.ddim_steps if args.sampler == "ddim"
         else 20 if args.sampler == "dpm"
@@ -158,13 +175,31 @@ def main(argv=None):
     else:
         fn = ddpm_sample
     shape = (batch, res, res, cfg.model.out_channels)
+    local_shape = (rows.stop - rows.start,) + shape[1:]
+
+    def gathered(t):
+        """The batch's rows of every rank, in rank order (rank 0's use)."""
+        if not mesh.distributed:
+            return t
+        parts = [torch.empty_like(t) for _ in range(mesh.world)]
+        torch.distributed.all_gather(parts, t.contiguous())
+        return torch.cat(parts)
 
     def run_batch(num: int):
-        """Batch `num`'s device pass, enqueued; its host copies' waiter."""
+        """Batch `num`'s device pass, enqueued; its host copies' waiter
+        (None on ranks but 0)."""
         with torch.no_grad():
-            x = fn(model, schedule, shape, batch_generator(args.seed, num, device), steps)
+            x_T, noise = row_draws(batch_generator(args.seed, num, device), shape, rows)
+            kw = {} if args.sampler == "dpm" else {"noise": noise}
+            x = fn(model, schedule, local_shape, None, steps, x_T=x_T, **kw)
             q = quantize(x)
-            return to_host(q, skeleton_pass(q))
+            q, packed = gathered(q), gathered(skeleton_pass(q))
+            return to_host(q, packed) if mesh.is_main else None
+
+    def resumed_on_main(num: int):
+        """try_resume on rank 0; every rank learns whether it resumed."""
+        r = try_resume(num) if mesh.is_main else None
+        return r, mesh.agree(r is not None)
 
     def try_resume(num: int):
         """Batch `num` from its PNGs on disk, or None to sample it."""
@@ -188,6 +223,17 @@ def main(argv=None):
                 [q, np.zeros((batch - q.shape[0], *q.shape[1:]), np.uint8)]
             )
         return to_host(skeleton_pass(torch.from_numpy(q).to(device)))
+
+    if not mesh.is_main:
+        # Ranks but 0 sample their rows of each batch that rank 0 does not
+        # resume, and leave the host side to it.
+        n_batches = (args.num_scenes + batch - 1) // batch
+        for num in range(n_batches):
+            if not resumed_on_main(num)[1]:
+                run_batch(num)
+        mesh.barrier()
+        mesh.close()
+        return None, None
 
     with cuda_hidden():  # the host workers never touch the card
         pool = multiprocessing.get_context("spawn").Pool(
@@ -232,7 +278,7 @@ def main(argv=None):
     n_resumed = 0
     try:
         for num in range(n_batches):
-            r = try_resume(num)
+            r, _ = resumed_on_main(num)
             if r is not None:
                 n_resumed += 1
             current = (num, r if r is not None else run_batch(num), r is not None)
@@ -294,6 +340,8 @@ def main(argv=None):
             "despeckle_px": vcfg.despeckle_px,
         },
     }
+    mesh.barrier()
+    mesh.close()
     # Same filename/keys as vectorization.py, so metrics pick up the
     # survivorship accounting unchanged.
     with open(os.path.join(out_dir, "vectorization_stats.json"), "w") as f:

@@ -21,6 +21,14 @@ out_channels 1 model) as a gray PNG, where the JAX package's CLI raises
 in PIL. Runs on --device (default cuda); --plain
 runs PyTorch's library ops there instead of the kernels, for a model
 outside their limits (models/unet2d.py kernel_limit_errors).
+
+Batch-parallel under torchrun (parallel/mesh.py; `torchrun
+--nproc_per_node N -m drivescenegen_torch.scripts.generation ...`): the
+batch is rounded down to a multiple of the data axis (at least one row a
+rank), as the JAX CLI rounds it; every rank draws batch `num`'s global x_T
+and noise and samples its rows of them (row_draws), and writes those rows
+under their global file names. So the PNGs of a W-rank run are those of
+the one-process run with the same batch and seed.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from drivescenegen_torch.diffusion import (
 )
 from drivescenegen_torch.models import UNet2D
 from drivescenegen_torch.models.convert import flax_to_torch, load_npz
-from drivescenegen_torch.utils.device import resolve_device
+from drivescenegen_torch.parallel import make_mesh
 from drivescenegen_torch.utils.logging import get_logger
 
 logger = get_logger("generation")
@@ -75,6 +83,26 @@ def load_model_for_sampling(cfg, model_dir: str, device, plain: bool = False):
 def batch_generator(seed: int, num: int, device) -> torch.Generator:
     """The generator that draws batch `num` of a run seeded with `seed`."""
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + num)
+
+
+def row_draws(generator: torch.Generator, shape, rows: slice):
+    """x_T and the per-step noise source of a batch, drawn at the global
+    `shape` from `generator` in the samplers' order (x_T first, then one
+    draw for each step that takes one) and cut to `rows`: with all rows,
+    the draws the samplers make from the generator themselves."""
+    def draw(_step=None):
+        return torch.randn(tuple(shape), generator=generator, device=generator.device,
+                           dtype=torch.float32)[rows]
+
+    return draw(), draw
+
+
+def rounded_batch(batch_size: int, n_data: int) -> int:
+    """The batch rounded down to a multiple of the data axis, at least one
+    row a rank (drivescenegen_tpu/scripts/generation.py:138-142)."""
+    if batch_size % n_data == 0:
+        return batch_size
+    return max(n_data, (batch_size // n_data) * n_data)
 
 
 def quantize(x: torch.Tensor) -> np.ndarray:
@@ -121,7 +149,8 @@ def main(argv=None):
     cfg = load_config(args.cfg_file)
     gcfg = cfg.generation
     sampler = args.sampler or gcfg.sampler
-    device = resolve_device(args.device)
+    mesh = make_mesh(cfg.mesh, args.device)
+    device = mesh.device
     model_dir = args.model_dir or gcfg.model_dir
     output_dir = args.output_dir or gcfg.output_dir
     steps = args.steps or {"ddim": gcfg.ddim_steps, "dpm": 20, "sde": 25}.get(
@@ -135,7 +164,13 @@ def main(argv=None):
     if conditional and cfg.model.cond_channels <= 0:
         raise SystemExit("--cond_dir given but the model has cond_channels=0")
     res = cfg.model.sample_size
+    n_data = mesh.shape["data"]
+    if rounded_batch(batch_size, n_data) != batch_size:
+        batch_size = rounded_batch(batch_size, n_data)
+        logger.info(f"rounded batch to {batch_size} (data axis {n_data})")
+    rows = mesh.rows(batch_size)
     shape = (batch_size, res, res, cfg.model.out_channels)
+    local_shape = (rows.stop - rows.start,) + shape[1:]
     if sampler == "ddim":
         eta = args.eta if args.eta is not None else gcfg.ddim_eta
         fn = functools.partial(ddim_sample, eta=eta, spacing=args.spacing or "leading")
@@ -157,9 +192,11 @@ def main(argv=None):
             denoise, cond = model, None
             if conditional:
                 cond = cond_batch(cond_files, num, batch_size, res, cfg.model.cond_channels,
-                                  device)
+                                  device)[rows]
                 denoise = make_guided_denoise(model, cond, guidance)
-            x = fn(denoise, schedule, shape, batch_generator(args.seed, num, device), steps)
+            x_T, noise = row_draws(batch_generator(args.seed, num, device), shape, rows)
+            kw = {} if sampler == "dpm" else {"noise": noise}  # DPM-Solver++(2M) draws x_T only
+            x = fn(denoise, schedule, local_shape, None, steps, x_T=x_T, **kw)
             if cond is not None:
                 x = torch.cat([cond, x], dim=-1)  # map R/G, then the sample
             imgs = quantize(x)  # copies to the host, so the batch is finished here
@@ -170,9 +207,11 @@ def main(argv=None):
             for i in range(imgs.shape[0]):
                 from PIL import Image
 
-                Image.fromarray(imgs[i]).save(
-                    os.path.join(output_dir, f"loop_{num:03d}_batch_{i:03d}.png"))
+                Image.fromarray(imgs[i]).save(os.path.join(
+                    output_dir, f"loop_{num:03d}_batch_{rows.start + i:03d}.png"))
             total += imgs.shape[0]
+    mesh.barrier()
+    mesh.close()
     dt = time.perf_counter() - t0
     mode = f"cfg(g={guidance})" if conditional else "uncond"
     logger.info(f"generated {total} scenes with {sampler}-{steps} {mode} on {device} in {dt:.1f}s "

@@ -10,6 +10,12 @@ package's generation CLI reads only orbax <model_dir>/params
 (drivescenegen_tpu/scripts/generation.py:68-74), so weights do not pass
 between the two packages' CLIs without a conversion that neither package
 holds yet.
+
+Under data parallelism (parallel/mesh.py) every rank holds the same state;
+given the mesh, only rank 0 writes, and every rank then waits at a
+barrier, so no rank reads a file before it is whole. The state dict is the
+unwrapped model's (no DDP "module." prefix). restore_params is the warm
+start of the train CLI's --init_from: params and EMA only.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from drivescenegen_torch.models.convert import save_npz, torch_to_flax
+from drivescenegen_torch.parallel.mesh import Mesh
 from drivescenegen_torch.training.trainer import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -41,48 +48,78 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def save_checkpoint(directory: str, state: TrainState, max_to_keep: int = 3) -> str:
+def save_checkpoint(directory: str, state: TrainState, max_to_keep: int = 3,
+                    mesh: Optional[Mesh] = None) -> str:
     """Write the state at its step (atomically: a temp file, then a
-    rename), then delete all but the newest max_to_keep checkpoints."""
-    os.makedirs(directory, exist_ok=True)
+    rename), then delete all but the newest max_to_keep checkpoints. Given
+    a mesh, rank 0 writes and every rank waits for it."""
     path = checkpoint_path(directory, state.step)
-    payload = {"params": state.model.state_dict(), "opt_state": state.optimizer.state_dict(),
-               "step": state.step}
-    if state.ema_params is not None:
-        payload["ema_params"] = state.ema_params
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    for step in _steps(directory)[:-max_to_keep]:
-        os.remove(checkpoint_path(directory, step))
+    if mesh is None or mesh.is_main:
+        os.makedirs(directory, exist_ok=True)
+        payload = {"params": state.model.state_dict(), "opt_state": state.optimizer.state_dict(),
+                   "step": state.step}
+        if state.ema_params is not None:
+            payload["ema_params"] = state.ema_params
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for step in _steps(directory)[:-max_to_keep]:
+            os.remove(checkpoint_path(directory, step))
+    if mesh is not None:
+        mesh.barrier()
     return path
+
+
+def _load_latest(directory: str, state: TrainState) -> dict:
+    step = latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found under {directory}")
+    device = next(state.model.parameters()).device
+    return torch.load(checkpoint_path(directory, step), map_location=device)
+
+
+def _restore_ema(state: TrainState, payload: dict) -> None:
+    """The EMA from the payload, seeded from its params when it has none."""
+    if state.ema_params is not None:
+        ema = payload.get("ema_params") or payload["params"]
+        for name, value in state.ema_params.items():
+            value.copy_(ema[name])
 
 
 def restore_checkpoint(directory: str, state: TrainState) -> TrainState:
     """Load the latest checkpoint into `state` (its model, optimizer, step
     and EMA) and return it. A checkpoint without EMA seeds the EMA from its
     params when the state keeps one."""
-    step = latest_step(directory)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint found under {directory}")
-    device = next(state.model.parameters()).device
-    payload = torch.load(checkpoint_path(directory, step), map_location=device)
+    payload = _load_latest(directory, state)
     state.model.load_state_dict(payload["params"])
     state.optimizer.load_state_dict(payload["opt_state"])
     state.step = int(payload["step"])
-    if state.ema_params is not None:
-        ema = payload.get("ema_params") or payload["params"]
-        for name, value in state.ema_params.items():
-            value.copy_(ema[name])
+    _restore_ema(state, payload)
     return state
 
 
-def save_params_only(directory: str, params: Dict[str, torch.Tensor]) -> str:
+def restore_params(directory: str, state: TrainState) -> int:
+    """Warm start (drivescenegen_tpu/scripts/train.py:288-307): load the
+    latest checkpoint's params, and its EMA (seeded from its params when
+    the donor has none), into `state`; its optimizer, step and schedule
+    stay fresh. Returns the donor's step."""
+    payload = _load_latest(directory, state)
+    state.model.load_state_dict(payload["params"])
+    _restore_ema(state, payload)
+    return int(payload["step"])
+
+
+def save_params_only(directory: str, params: Dict[str, torch.Tensor],
+                     mesh: Optional[Mesh] = None) -> str:
     """Export weights for sampling: <directory>/params.npz in the flat flax
-    layout (models/convert.py torch_to_flax + save_npz)."""
-    os.makedirs(directory, exist_ok=True)
+    layout (models/convert.py torch_to_flax + save_npz). Given a mesh, rank
+    0 writes and every rank waits for it."""
     path = os.path.join(directory, "params.npz")
-    tmp = os.path.join(directory, f"params.{os.getpid()}.tmp.npz")
-    save_npz(tmp, torch_to_flax(params))
-    os.replace(tmp, path)
+    if mesh is None or mesh.is_main:
+        os.makedirs(directory, exist_ok=True)
+        tmp = os.path.join(directory, f"params.{os.getpid()}.tmp.npz")
+        save_npz(tmp, torch_to_flax(params))
+        os.replace(tmp, path)
+    if mesh is not None:
+        mesh.barrier()
     return path

@@ -22,6 +22,17 @@ optax is matched operation for operation, not just nearly:
 
 The model is a UNet2D(for_training=True): bf16 activations over f32
 parameters, the attention's forward and backward kernels on the card.
+With cfg.dropout > 0 its ResnetBlocks drop activations between norm2 and
+conv2 (models/unet2d.py DropoutMasks).
+
+Data parallel (parallel/mesh.py): each rank steps on its rows of the
+global batch. Every rank draws the global noise, t, keep mask and dropout
+masks from the step's generator and takes its rows, so a W-rank step
+computes what the one-process step computes, up to the order of
+reduction. The gradients are averaged over the data axis by one coalesced
+all_reduce (all_reduce_mean_, not DDP: the model stays unwrapped, so its
+state-dict names are the flax tree's) before the global-norm clip; the
+optimizer and EMA then make the same update on every rank.
 """
 
 from __future__ import annotations
@@ -35,7 +46,8 @@ import torch
 from drivescenegen_torch.config import TrainConfig
 from drivescenegen_torch.diffusion.cfg import apply_cond_dropout
 from drivescenegen_torch.diffusion.schedule import DiffusionSchedule
-from drivescenegen_torch.models.unet2d import UNet2D
+from drivescenegen_torch.models.unet2d import DropoutMasks, UNet2D
+from drivescenegen_torch.parallel.mesh import Mesh, all_reduce_mean_
 from drivescenegen_torch.utils import prng
 
 
@@ -108,36 +120,41 @@ def normalize_batch(batch: torch.Tensor) -> torch.Tensor:
 
 def diffusion_loss(model: UNet2D, schedule: DiffusionSchedule, target: torch.Tensor,
                    noise: torch.Tensor, t: torch.Tensor,
-                   cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   cond: Optional[torch.Tensor] = None,
+                   dropout: Optional[DropoutMasks] = None) -> torch.Tensor:
     """MSE between the model's eps at x_t = add_noise(target, noise, t)
-    (conditioned on `cond`, if given) and the noise, in f32."""
-    eps_hat = model(schedule.add_noise(target, noise, t), t, cond)
+    (conditioned on `cond`, if given; its ResnetBlocks masked by `dropout`,
+    if given) and the noise, in f32."""
+    eps_hat = model(schedule.add_noise(target, noise, t), t, cond, dropout=dropout)
     return torch.mean((eps_hat.float() - noise) ** 2)
 
 
 def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], float],
-                    cfg: TrainConfig) -> Callable:
-    """Returns step(state, batch, noise=None, t=None, keep=None) ->
-    (state, metrics).
+                    cfg: TrainConfig, mesh: Optional[Mesh] = None) -> Callable:
+    """Returns step(state, batch, noise=None, t=None, keep=None,
+    dropout_masks=None) -> (state, metrics).
 
-    `batch` is [B, H, W, C] uint8 (normalized on the device) or float in
+    `batch` is this rank's rows of the global batch (all of it without a
+    mesh): [B, H, W, C] uint8 (normalized on the device) or float in
     [-1, 1]; for a conditional model C = cond_channels + in_channels, the
-    conditioning first. `noise`, `t` and the cond-dropout mask `keep` ([B]
-    bool) come from the step's generator (utils/prng.py: the run's "train"
-    seed folded with the step), in that order, when not given. When any of
-    them is missing, noise and t are both drawn and a given one is kept, so
-    the mask is always the third draw. Tests hand in the JAX step's own
-    draws. The state is updated in place;
-    metrics are loss, grad_norm (before clipping; both device tensors, read
-    without a host sync) and lr."""
+    conditioning first. The step's generator (utils/prng.py: the run's
+    "train" seed folded with the step) draws, at the global batch, the
+    noise, t, the cond-dropout mask `keep` ([B] bool) and then, during the
+    forward, the dropout masks, in that order, and the rank takes its rows
+    of each. What the caller hands in (this rank's rows, e.g. the JAX
+    step's own draws in the tests; `dropout_masks` a list, one per
+    ResnetBlock) is used instead; when anything is missing, noise and t
+    are both drawn and a given one is kept, so that every later draw keeps
+    its place in the stream. The state is updated in place; metrics are
+    loss (averaged over the data axis), grad_norm (before clipping; both
+    device tensors, read without a host sync) and lr."""
     train_seed = prng.purpose_seed(cfg.seed, "train")
     ema_decay = np.float32(cfg.ema_decay)
 
-    def train_step(state: TrainState, batch: torch.Tensor, noise=None, t=None, keep=None):
+    def train_step(state: TrainState, batch: torch.Tensor, noise=None, t=None, keep=None,
+                   dropout_masks=None):
         model, opt = state.model, state.optimizer
         mcfg = model.cfg
-        if mcfg.dropout > 0.0:
-            raise NotImplementedError("dropout > 0 comes with a later slice of the port")
         device = schedule.device
         batch = normalize_batch(batch.to(device))
         cond_ch = mcfg.cond_channels
@@ -146,27 +163,41 @@ def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], fl
                              f"cond_channels + in_channels = {cond_ch + mcfg.in_channels}")
         cond, target = (batch[..., :cond_ch], batch[..., cond_ch:]) if cond_ch else (None, batch)
         B = target.shape[0]
+        world = mesh.shape["data"] if mesh is not None else 1
+        rows = mesh.rows(B * world) if mesh is not None else slice(None)
         drop = cond is not None and cfg.cond_dropout > 0.0
+        use_dropout = mcfg.dropout > 0.0
         gen = None
-        if noise is None or t is None or (drop and keep is None):
+        if noise is None or t is None or (drop and keep is None) or (
+                use_dropout and dropout_masks is None):
             gen = prng.for_step(train_seed, state.step, device)
             # noise and t are drawn even when given, so that each draw keeps
             # its place in the stream whatever the caller hands in.
-            noise_d = torch.randn(target.shape, generator=gen, device=device)
-            t_d = torch.randint(0, schedule.num_train_timesteps, (B,), generator=gen,
-                                device=device)
+            noise_d = torch.randn((B * world,) + tuple(target.shape[1:]), generator=gen,
+                                  device=device)[rows]
+            t_d = torch.randint(0, schedule.num_train_timesteps, (B * world,), generator=gen,
+                                device=device)[rows]
             noise = noise_d if noise is None else noise
             t = t_d if t is None else t
+            if drop and keep is None:
+                keep = (torch.rand(B * world, generator=gen, device=device)
+                        < 1.0 - cfg.cond_dropout)[rows]
         noise = noise.to(device=device, dtype=torch.float32)
         t = t.to(device=device, dtype=torch.int64)
         if cond is not None:
-            cond = apply_cond_dropout(cond, cfg.cond_dropout, gen, keep)
+            cond = apply_cond_dropout(cond, cfg.cond_dropout, None, keep)
+        dropout = None
+        if use_dropout:
+            dropout = (DropoutMasks(mcfg.dropout, masks=dropout_masks) if dropout_masks is not None
+                       else DropoutMasks(mcfg.dropout, gen, batch=B * world, rows=rows))
 
         opt.zero_grad(set_to_none=True)
-        loss = diffusion_loss(model, schedule, target, noise, t, cond)
+        loss = diffusion_loss(model, schedule, target, noise, t, cond, dropout)
         loss.backward()
         params = [p for group in opt.param_groups for p in group["params"]]
         grads = [p.grad for p in params]
+        loss = loss.detach()
+        all_reduce_mean_(grads + [loss.reshape(1)], mesh)
         norm = global_norm(grads)
         clip_by_global_norm_(grads, cfg.grad_clip_norm, norm)
         lr = lr_schedule(state.step)
@@ -182,6 +213,6 @@ def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], fl
             torch._foreach_add_(ema, [named[n].detach() for n in state.ema_params],
                                 alpha=float(np.float32(1) - decay))
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": norm, "lr": lr}
+        return state, {"loss": loss, "grad_norm": norm, "lr": lr}
 
     return train_step

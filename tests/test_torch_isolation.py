@@ -43,7 +43,9 @@ def test_the_port_has_its_modules():
                      "drivescenegen_torch/scripts/data_preprocess.py",
                      "drivescenegen_torch/scripts/data_rasterization.py",
                      "drivescenegen_torch/scripts/compute_map_metrics.py",
-                     "drivescenegen_torch/scripts/run_demo.py"):
+                     "drivescenegen_torch/scripts/run_demo.py",
+                     "drivescenegen_torch/parallel/mesh.py",
+                     "drivescenegen_torch/utils/profiling.py"):
         assert required in names
 
 

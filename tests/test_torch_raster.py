@@ -250,9 +250,11 @@ def test_rasterization_cli_matches_the_jax_cli(pickles, jax_cli_outputs, tmp_pat
 
 def test_rasterization_cli_refusals(pickles, tmp_path, monkeypatch):
     d, cfg = pickles
-    with pytest.raises(SystemExit, match="later slice"):
+    occupancy = tmp_path / "occupancy.yaml"
+    occupancy.write_text("raster:\n  img_res: 64\n  mode: occupancy\n")
+    with pytest.raises(SystemExit, match="requires an RGB raster mode"):
         t_cli.main(["--load_path", str(d), "--save_path", str(tmp_path), "--save_sidecar",
-                    "--device", "cpu"])
+                    "--cfg_file", str(occupancy), "--device", "cpu"])
     with pytest.raises(SystemExit, match="no scenario pickles"):
         t_cli.main(["--load_path", str(tmp_path / "none"), "--save_path", str(tmp_path),
                     "--device", "cpu"])

@@ -245,8 +245,9 @@ def test_purpose_ids_are_the_jax_packages():
 
 def test_conditional_training_names_the_next_slice():
     """Conditional training is ported (tests/test_torch_dpm_cfg.py holds it
-    to JAX): a cond_channels=2 step runs on its [cond | target] batch.
-    Dropout > 0 still names the later slice that brings it."""
+    to JAX): a cond_channels=2 step runs on its [cond | target] batch. So
+    is dropout > 0 (tests/test_torch_dropout.py holds it to JAX): its step
+    runs and draws a mask for each ResnetBlock."""
     tcfg = TrainConfig(batch_size=1)
     model = UNet2D(ModelConfig(**dict(TINY, cond_channels=2)), device="cpu", for_training=True)
     opt, lr_fn = create_optimizer(tcfg, 10, model.parameters())
@@ -255,8 +256,10 @@ def test_conditional_training_names_the_next_slice():
     assert state.step == 1 and np.isfinite(float(m["loss"]))
     model = UNet2D(ModelConfig(**dict(TINY, dropout=0.1)), device="cpu", for_training=True)
     opt, lr_fn = create_optimizer(tcfg, 10, model.parameters())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        step(init_train_state(model, opt), torch.zeros(1, 16, 16, 3))
+    state, m = step(init_train_state(model, opt), torch.zeros(1, 16, 16, 3))
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    with pytest.raises(IndexError):  # one mask short: every ResnetBlock takes one
+        step(state, torch.zeros(1, 16, 16, 3), dropout_masks=[torch.ones(1, 16, 16, 8).bool()])
 
 
 # ------------------------------------------------------------- dataset
@@ -418,11 +421,21 @@ def test_train_cli_stop_file_saves_and_exits(corpus, tmp_path):
     assert (out / "params.npz").exists()
 
 
-@pytest.mark.parametrize("extra", [["--init_from", "x"], ["--profile_steps", "2"],
+@pytest.mark.parametrize("extra", [["--init_from", "x"], ["--profile_steps", "-2"],
                                    ["--supervise", "1"]])
-def test_train_cli_later_options_exit_with_a_message(extra, tmp_path):
-    with pytest.raises(SystemExit, match="later slice"):
-        train.main(["--device", "cpu", "--output_dir", str(tmp_path)] + extra)
+def test_train_cli_later_options_exit_with_a_message(extra, corpus, tmp_path, monkeypatch):
+    """The options a later slice brought (tests/test_torch_train_cli.py runs
+    them) exit with a message on a wrong use: a donor with no checkpoint, a
+    negative count, --supervise under torchrun."""
+    why = {"--init_from": "--init_from: no checkpoint", "--profile_steps": "count >= 0",
+           "--supervise": "outer process"}[extra[0]]
+    if extra[0] == "--init_from":
+        extra = ["--init_from", str(tmp_path / "x")]
+    if extra[0] == "--supervise":
+        monkeypatch.setenv("WORLD_SIZE", "2")  # as torchrun sets it
+    with pytest.raises(SystemExit, match=why):
+        train.main(["--device", "cpu", "--output_dir", str(tmp_path / "run"), "--cfg_file",
+                    _cfg_file(tmp_path), "--dataset_glob", corpus] + extra)
 
 
 def test_metric_writer_appends_jsonl(tmp_path):
