@@ -133,7 +133,23 @@ Phases, each printed as it runs; any failure exits non-zero:
                kills after its first checkpoint, resumed to rc 0; the
                generation CLI under torchrun, byte-equal to phase 6's PNGs
 
-About 580-700 s on an H100, builds included; phase 14 about 260-295 s of it.
+  15. tp       tensor parallelism: the attention forward (o, lse) and the
+               backward's three launches at the heads one rank runs at tp =
+               2 and 4 ([14, 4, 1024, 64], [14, 2, 1024, 64]), each against
+               its plain version, two backward runs bit-identical, timed
+               beside the bound and SDPA; config-3's train step at model 2
+               on two ranks on the card over gloo (NCCL refuses two ranks
+               on one device), started by torch.distributed.run, on phase
+               7's weights, batch and draws with the kernels, against the
+               one-process step under phase 7's gates, the gathered params
+               and EMA after two steps, each rank's launches, ms a step
+               (gloo staged through host memory: not a TP speed) and peak
+               memory; the tp = 2 checkpoint resumed at tp = 1, its next
+               step against the tp = 2 run's, and the tp = 2 params.npz
+               through the generation CLI
+
+About 580-700 s on an H100 before phase 15, builds included; phase 14
+about 260-295 s of it.
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -1327,6 +1343,243 @@ def phase_scale(here: str, work: str, model_dir: str, gen6_dir: str, train7_run:
     return out
 
 
+
+# Phase 15: config-3's model at its per-chip batch of 14, phase 7's weights,
+# batch, noise and t, phase 7's TrainConfig without lr warmup (as phase
+# 14d), on a mesh of data 1 x model 2: two ranks on the one card over gloo.
+TP_MODEL, TP_STEPS_TIMED = 2, 3
+
+
+def tp_train_config():
+    from drivescenegen_torch.config import TrainConfig
+
+    return dataclasses.replace(TrainConfig(ema_decay=0.9999), lr_warmup_steps=0)
+
+
+def flat_of(tree, names):
+    """The tensors of `tree` in the order of `names`, as one f32 vector."""
+    import torch
+
+    return torch.cat([tree[n].float().reshape(-1) for n in names])
+
+
+def tp_worker(workdir: str) -> int:
+    """One rank of phase 15b (chip_smoke.py --tp-worker <workdir>, started by
+    torch.distributed.run): the training arm at model 2 on cuda:0 over gloo,
+    with the kernels. Step 1 on phase 7's noise and t, its launches and
+    gathered gradients; step 2 (the step's own draws), the gathered params
+    and EMA after it; a checkpoint (rank 0 writes the gathered state) and
+    params.npz; step 3 and its gathered gradients; then TP_STEPS_TIMED timed
+    steps and the rank's peak memory. Rank 0 saves the gathered tensors;
+    every rank writes its numbers as JSON."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from drivescenegen_torch import ops
+    from drivescenegen_torch.config import Config, MeshConfig, ModelConfig, save_config
+    from drivescenegen_torch.diffusion import make_schedule
+    from drivescenegen_torch.models import UNet2D
+    from drivescenegen_torch.parallel import gather_state_dict, make_mesh, shard_state_dict
+    from drivescenegen_torch.training import create_optimizer, init_train_state, make_train_step
+    from drivescenegen_torch.training.checkpoint import (full_params, save_checkpoint,
+                                                         save_params_only)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # Both ranks on the one card: NCCL refuses two ranks on one device.
+    mesh = make_mesh(MeshConfig(data=1, model=TP_MODEL), "cuda:0", backend="gloo")
+    try:
+        dev = mesh.device
+        inp = torch.load(os.path.join(workdir, "..", "train7_inputs.pt"), map_location=dev)
+        mcfg, tcfg = ModelConfig(attention_impl="flash"), tp_train_config()
+        torch.cuda.reset_peak_memory_stats()
+        model = UNet2D(mcfg, device=dev, for_training=True, mesh=mesh)
+        model.load_state_dict(shard_state_dict(inp["weights"], mesh, model.tp_plan))
+        opt, lr_fn = create_optimizer(tcfg, 1000, model.parameters())
+        state = init_train_state(model, opt, ema=True)
+        step = make_train_step(make_schedule(device=dev), lr_fn, tcfg, mesh)
+        names = [n for n, _ in model.named_parameters()]
+        batch = inp["batch"][mesh.rows(len(inp["batch"]))]
+        out = {"rank": mesh.rank, "model_index": mesh.model_index, "sharded": len(model.tp_plan),
+               "local_params": sum(p.numel() for p in model.parameters())}
+        tensors = {}
+
+        def gathered_grads():
+            return flat_of(gather_state_dict({n: p.grad for n, p in model.named_parameters()},
+                                             mesh, model.tp_plan), names)
+
+        ops.reset_launch_counts()
+        state, m = step(state, batch, inp["noise"], inp["t"])
+        torch.cuda.synchronize()
+        out["launches_step1"] = ops.launch_counts()
+        out["step1"] = (m["loss"].item(), m["grad_norm"].item())
+        tensors["grads1"] = gathered_grads()
+        state, m = step(state, batch)
+        out["step2"] = (m["loss"].item(), m["grad_norm"].item())
+        tensors["params2"] = flat_of(full_params(state, mesh), names)
+        tensors["ema2"] = flat_of(full_params(state, mesh, ema=True), names)
+        save_checkpoint(os.path.join(workdir, "checkpoints"), state, mesh=mesh)
+        model_dir = os.path.join(workdir, "export")
+        save_params_only(model_dir, full_params(state, mesh, ema=True), mesh=mesh)
+        if mesh.is_main:
+            save_config(Config(model=mcfg), os.path.join(model_dir, "config.yaml"))
+        state, m = step(state, batch)
+        out["step3"] = (m["loss"].item(), m["grad_norm"].item())
+        tensors["grads3"] = gathered_grads()
+        times = []
+        for _ in range(TP_STEPS_TIMED):
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["step_ms"] = times
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if mesh.is_main:
+            torch.save(tensors, os.path.join(workdir, "tensors.pt"))
+        with open(os.path.join(workdir, f"rank{mesh.rank}.json"), "w") as f:
+            json.dump(out, f)
+        mesh.barrier()
+    finally:
+        mesh.close()
+    return 0
+
+
+def phase_tp_train(here: str, work: str, inputs7: str) -> dict:
+    """Phases 15b and 15c: the full-width TP train step on two gloo ranks on
+    the card against the one-process step on the same weights, batch and
+    draws, under phase 7's gates; the gathered params and EMA after two
+    steps; the launches, ms per step and peak memory of each rank; then the
+    tp = 2 checkpoint resumed by one process at tp = 1, its next step held
+    to the tp = 2 run's, and the tp = 2 params.npz sampled by the generation
+    CLI. Returns the numbers."""
+    import torch
+
+    from drivescenegen_torch.config import ModelConfig
+    from drivescenegen_torch.diffusion import make_schedule
+    from drivescenegen_torch.models import UNet2D
+    from drivescenegen_torch.scripts import generation
+    from drivescenegen_torch.training import create_optimizer, init_train_state, make_train_step
+    from drivescenegen_torch.training.checkpoint import restore_checkpoint
+
+    dev = torch.device("cuda")
+    mcfg, tcfg = ModelConfig(attention_impl="flash"), tp_train_config()
+    inp = torch.load(inputs7, map_location=dev)
+    TB = len(inp["batch"])
+    schedule = make_schedule(device=dev)
+    out = {}
+
+    def one_process():
+        m_ = UNet2D(mcfg, device=dev, for_training=True)
+        m_.load_state_dict(inp["weights"])
+        opt, lr_fn = create_optimizer(tcfg, 1000, m_.parameters())
+        return init_train_state(m_, opt, ema=True), make_train_step(schedule, lr_fn, tcfg)
+
+    def grads_of(model):
+        return torch.cat([p.grad.float().reshape(-1) for _, p in model.named_parameters()])
+
+    # The one-process reference: steps 1-3 on the same weights and draws.
+    st, step = one_process()
+    names = [n for n, _ in st.model.named_parameters()]
+    p0 = flat_of(dict(st.model.named_parameters()), names)
+    ref = {}
+    st, m = step(st, inp["batch"], inp["noise"], inp["t"])
+    ref["step1"], ref["grads1"] = (m["loss"].item(), m["grad_norm"].item()), grads_of(st.model)
+    lrs = [m["lr"]]
+    st, m = step(st, inp["batch"])
+    ref["step2"] = (m["loss"].item(), m["grad_norm"].item())
+    lrs.append(m["lr"])
+    ref["params2"] = flat_of(dict(st.model.named_parameters()), names)
+    ref["ema2"] = flat_of(st.ema_params, names)
+    st, m = step(st, inp["batch"])
+    ref["step3"], ref["grads3"] = (m["loss"].item(), m["grad_norm"].item()), grads_of(st.model)
+    del st, step, m
+    torch.cuda.empty_cache()
+
+    # 15b: two ranks on the card, started as a user starts them.
+    tp_dir = os.path.join(work, "tp")
+    os.makedirs(tp_dir)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", str(TP_MODEL), os.path.join(here, "chip_smoke.py"),
+                          "--tp-worker", tp_dir], cwd=here, env=env, capture_output=True,
+                         text=True, timeout=600)
+    out["workers_s"] = time.perf_counter() - t0
+    check(res.returncode == 0, f"the TP workers exited {res.returncode}:\n"
+                               f"{(res.stdout + res.stderr)[-4000:]}")
+    ranks = [json.load(open(os.path.join(tp_dir, f"rank{r}.json"))) for r in range(TP_MODEL)]
+    got = torch.load(os.path.join(tp_dir, "tensors.pt"), map_location=dev)
+
+    def gate(label, mine, theirs, g_mine, g_theirs):
+        (lk, gk), (lp, gp) = mine, theirs
+        cos = torch.nn.functional.cosine_similarity(g_mine, g_theirs, dim=0).item()
+        print(f"{label}: loss {lk:.6f} vs {lp:.6f} (rel {abs(lk - lp) / lp:.2e}, tol "
+              f"{TRAIN_LOSS_TOL}), grad_norm {gk:.6f} vs {gp:.6f} (rel {abs(gk - gp) / gp:.2e}, "
+              f"tol {TRAIN_GNORM_TOL}), gradient cosine {cos:.6f} (min {TRAIN_COS_MIN})")
+        check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp), f"{label}: loss differs")
+        check(abs(gk - gp) <= TRAIN_GNORM_TOL * abs(gp), f"{label}: grad_norm differs")
+        check(cos >= TRAIN_COS_MIN, f"{label}: gradient cosine {cos}")
+        return cos
+
+    check(ranks[0]["step1"] == ranks[1]["step1"], f"the two ranks' step 1 differ: {ranks}")
+    out["step1_cosine"] = gate(f"TP step (model {TP_MODEL}, 2 gloo ranks) against one process, "
+                               f"step 1 on phase 7's draws", ranks[0]["step1"], ref["step1"],
+                               got["grads1"], ref["grads1"])
+    # In AdamW's first two steps an element moves by at most its lr (after
+    # bias correction |m / sqrt(v)| <= 1, by Cauchy-Schwarz), plus the decay
+    # lr wd |p|; so two runs whose gradients differ in rounding stay within
+    # 2 (lr_1 + lr_2) of each other, gated at 3 (lr_1 + lr_2), and the EMA,
+    # an average of the params, within the same.
+    bound = 3 * sum(lrs)
+    for name in ("params2", "ema2"):
+        diff = (got[name] - ref[name]).abs()
+        upd = torch.nn.functional.cosine_similarity(got[name] - p0, ref[name] - p0, dim=0).item()
+        print(f"{name[:-1]} after two steps: max |delta| {diff.max().item():.3g} (bound "
+              f"{bound:.3g} = 3 x the two lrs), {100 * (diff <= 1e-7).float().mean().item():.2f}% "
+              f"of {diff.numel()} values within 1e-7; cosine of the two runs' moves {upd:.6f}")
+        check(diff.max().item() <= bound, f"the TP run's {name} is {diff.max().item()} away")
+        check(upd >= TRAIN_COS_MIN, f"the TP run's {name} moved along {upd} of the one process's")
+    want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
+             "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1}
+    for r in ranks:
+        check(r["launches_step1"] == want1, f"rank {r['rank']} launched {r['launches_step1']} "
+                                            f"in one TP step, not {want1}")
+        med = sorted(r["step_ms"])[len(r["step_ms"]) // 2]
+        print(f"rank {r['rank']} (model index {r['model_index']}): {r['sharded']} sharded tensors, "
+              f"{r['local_params']:,} parameters; launches in one step {r['launches_step1']}; "
+              f"{', '.join(f'{x:.1f}' for x in r['step_ms'])} ms a step (median {med:.1f}): gloo "
+              f"staged through host memory, both ranks on one card; not a TP speed; peak memory "
+              f"{r['peak_gb']:.2f} GB (torch.cuda.max_memory_allocated)")
+    out["ranks"] = ranks
+    print(f"TP workers: {out['workers_s']:.1f} s wall (two processes, model build, 6 steps, "
+          f"gathers, a checkpoint)")
+
+    # 15c: the tp = 2 checkpoint (step 2) resumed by one process at tp = 1.
+    st, step = one_process()
+    st = restore_checkpoint(os.path.join(tp_dir, "checkpoints"), st)
+    check(st.step == 2, f"resumed at step {st.step}")
+    st, m = step(st, inp["batch"])
+    out["resume_cosine"] = gate("tp = 2 checkpoint resumed at tp = 1: step 3 against the tp = 2 "
+                                "run's step 3", (m["loss"].item(), m["grad_norm"].item()),
+                                ranks[0]["step3"], grads_of(st.model), got["grads3"])
+    gate("the tp = 2 run's step 3 against the one-process run's", ranks[0]["step3"],
+         ref["step3"], got["grads3"], ref["grads3"])
+    del st, step, m, got, ref
+    torch.cuda.empty_cache()
+    gen_dir = os.path.join(tp_dir, "gen")
+    generation.main(["--model_dir", os.path.join(tp_dir, "export"), "--output_dir", gen_dir,
+                     "--sampler", "ddim", "--steps", "10", "--batch_size", "1", "--num_batches",
+                     "1", "--device", "cuda"])
+    check(os.listdir(gen_dir) == ["loop_000_batch_000.png"], "generation from the tp = 2 export")
+    print(f"the tp = 2 params.npz (the gathered EMA) sampled by the generation CLI (DDIM-10): "
+          f"loop_000_batch_000.png; batch {TB} a step on each rank")
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -1834,74 +2087,108 @@ def main() -> int:
                     errs={"attention_with_lse": (e_o, m_o), "attention_bwd_prep": (e_di, m_di),
                           "attention_bwd_main": (e_main, m_main), "attention_bwd_dq": (e_dq, m_dq)})
 
+    def attention_bwd_times(a, TB, heads, S, hd):
+        """Times of the attention's train-step launches on the inputs and
+        intermediates attention_bwd_checks returned (a): the forward with
+        lse, the pre-pass, the main pass and the dQ pass, each beside its
+        bound and its plain version, the whole attention_bwd call, and
+        SDPA's forward and backward. Calls bound by bytes whose working set
+        fits in twice the L2 are timed over rotated input copies
+        (time_cold_ms), the warm time beside it."""
+        q, k, v, o, lse, do, di, sems, acc = (a[n] for n in ("q", "k", "v", "o", "lse", "do",
+                                                              "di", "sems", "acc"))
+        sc = 1.0 / math.sqrt(hd)
+        prod = 2 * TB * heads * S * S * hd
+        elems, rows_ = TB * heads * S * hd, TB * heads * S
+        # Bounds: per (batch, head) a product is 2 S^2 D FLOP. The forward
+        # needs two and reads q, k, v and writes o and lse; the backward
+        # needs five (S, dP, dV, dK, dQ), all in the main pass, which reads
+        # q, k, v, dO, lse and di and writes dk, dv and the f32
+        # accumulator. The pre- and dQ passes move bytes: o and dO in, di
+        # (and the semaphores) out; the accumulator in, dq out.
+        fwd_bytes = 4 * elems * 2 + rows_ * 4
+        prep_bytes = 2 * elems * 2 + rows_ * 4 + rows_ // 64 * 4
+        dq_bytes = elems * 4 + elems * 2
+        t = dict(prod=prod, bnd_fwd=bound_ms(fwd_bytes, 2 * prod),
+                 bnd_prep=bound_ms(prep_bytes, 2 * elems),
+                 bnd_main=bound_ms(4 * elems * 2 + 2 * rows_ * 4 + 2 * elems * 2 + elems * 4,
+                                   5 * prod),
+                 bnd_dq=bound_ms(dq_bytes, elems),
+                 bnd_all=bound_ms(5 * elems * 2 + rows_ * 4 + 3 * elems * 2, 5 * prod))
+        t["fwd_ms"], _ = time_cold_ms(lambda *x: ops.attention_with_lse(*x, sc), (q, k, v),
+                                      t["bnd_fwd"], fwd_bytes)
+        t["fwd_plain_ms"] = time_ms(lambda: (ops.reference_attention(q, k, v, sc),
+                                             ops.reference_attention_lse(q, k, sc)), graph=False)
+        t["fwd_lib_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+        t["prep_ms"], t["prep_copies"] = time_cold_ms(ops.attention_bwd_prep, (o, do),
+                                                      t["bnd_prep"], prep_bytes)
+        t["prep_warm"] = time_ms(lambda: ops.attention_bwd_prep(o, do))
+        t["main_ms"] = time_ms(lambda: ops.attention_bwd_main(q, k, v, do, lse, di, sems, sc))
+        t["dq_ms"], t["dq_copies"] = time_cold_ms(lambda x: ops.attention_bwd_dq(x, sc), (acc,),
+                                                  t["bnd_dq"], dq_bytes)
+        t["dq_warm"] = time_ms(lambda: ops.attention_bwd_dq(acc, sc))
+        t["bwd_ms"] = time_ms(lambda: ops.attention_bwd(q, k, v, o, lse, do, sc))
+        t["plain_ms"] = time_ms(lambda: ops.reference_attention_bwd(q, k, v, o, lse, do, sc),
+                                graph=False)
+        t["di_plain_ms"], _ = time_cold_ms(ops.reference_attention_di, (o, do), t["bnd_prep"],
+                                           prep_bytes)
+        t["dq_plain_ms"], _ = time_cold_ms(lambda x: ops.reference_attention_bwd_dq(x, sc),
+                                           (acc,), t["bnd_dq"], dq_bytes)
+        # Library yardstick of the pre-pass: rowsum(O·dO) in one call.
+        t["di_lib_ms"], _ = time_cold_ms(lambda o_, do_: torch.linalg.vecdot(o_, do_, dim=-1),
+                                         (o, do), t["bnd_prep"], prep_bytes)
+        # Library yardstick: SDPA's backward alone (PyTorch picks its
+        # backend; the forward is excluded), by device time: its host
+        # enqueue is about as long as its device time, so an eager loop
+        # would time the host.
+        ql, kl, vl = (tt.detach().requires_grad_() for tt in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, scale=sc)
+        t["lib_ms"] = device_ms(lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), do,
+                                                            retain_graph=True))
+        t["lib_name"] = sdpa_out.grad_fn.name()
+        return t
+
+    def print_bwd_times(t, label):
+        print(f"attention_bwd {label}: pre-pass {t['prep_ms']:.4f} ms over {t['prep_copies']} "
+              f"input copies (warm in L2 {t['prep_warm']:.4f}; bound {t['bnd_prep'][0]:.4f}, "
+              f"{t['bnd_prep'][1]}; torch.linalg.vecdot {t['di_lib_ms']:.4f}), main pass "
+              f"{t['main_ms']:.4f} ms ({5 * t['prod'] / t['main_ms'] / 1e9:.1f} TFLOP/s, bound "
+              f"{t['bnd_main'][0]:.4f}, {t['bnd_main'][1]}), dQ pass {t['dq_ms']:.4f} ms over "
+              f"{t['dq_copies']} input copies (warm in L2 {t['dq_warm']:.4f}; bound "
+              f"{t['bnd_dq'][0]:.4f}, {t['bnd_dq'][1]}); the three "
+              f"{t['prep_ms'] + t['main_ms'] + t['dq_ms']:.4f} ms, one attention_bwd call "
+              f"{t['bwd_ms']:.4f} ms ({5 * t['prod'] / t['bwd_ms'] / 1e9:.1f} TFLOP/s on the five "
+              f"products) against the backward's bound {t['bnd_all'][0]:.4f} ms "
+              f"({t['bnd_all'][1]}), SDPA backward ({t['lib_name']}, device time) "
+              f"{t['lib_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms")
+
     # 7a: the attention backward kernels at the train step's shape.
     sc = 1.0 / math.sqrt(hd)
     a7 = attention_bwd_checks(TB, heads, S, hd)
-    q, k, v, o, lse, do, di, sems, acc = (a7[n] for n in ("q", "k", "v", "o", "lse", "do", "di",
-                                                           "sems", "acc"))
     (e_di, m_di), (e_main, m_main), (e_dq, m_dq) = (
         a7["errs"][n] for n in ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq"))
     label = f"[{TB},{heads},{S},{hd}]"
-    prod = 2 * TB * heads * S * S * hd
-    elems, rows_ = TB * heads * S * hd, TB * heads * S
-    # Bounds: per (batch, head) a product is 2 S^2 D FLOP, and the backward
-    # needs five (S, dP, dV, dK, dQ), all in the main pass, which reads q,
-    # k, v, dO, lse and di and writes dk, dv and the f32 accumulator. The
-    # pre- and dQ passes move bytes: o and dO in, di (and the semaphores)
-    # out; the accumulator in, dq out.
-    prep_bytes = 2 * elems * 2 + rows_ * 4 + rows_ // 64 * 4
-    dq_bytes = elems * 4 + elems * 2
-    bnd_prep = bound_ms(prep_bytes, 2 * elems)
-    bnd_main = bound_ms(4 * elems * 2 + 2 * rows_ * 4 + 2 * elems * 2 + elems * 4, 5 * prod)
-    bnd_dq = bound_ms(dq_bytes, elems)
-    bnd_all = bound_ms(5 * elems * 2 + rows_ * 4 + 3 * elems * 2, 5 * prod)
-    # The pre- and dQ passes are bound by bytes and their working sets fit
-    # in L2: timed over rotated input copies (time_cold_ms), the warm
-    # back-to-back time printed beside it.
-    prep_ms, prep_copies = time_cold_ms(ops.attention_bwd_prep, (o, do), bnd_prep, prep_bytes)
-    prep_warm = time_ms(lambda: ops.attention_bwd_prep(o, do))
-    main_ms = time_ms(lambda: ops.attention_bwd_main(q, k, v, do, lse, di, sems, sc))
-    dq_ms, dq_copies = time_cold_ms(lambda a: ops.attention_bwd_dq(a, sc), (acc,), bnd_dq, dq_bytes)
-    dq_warm = time_ms(lambda: ops.attention_bwd_dq(acc, sc))
-    bwd_ms = time_ms(lambda: ops.attention_bwd(q, k, v, o, lse, do, sc))
-    plain_ms = time_ms(lambda: ops.reference_attention_bwd(q, k, v, o, lse, do, sc), graph=False)
-    di_plain_ms, _ = time_cold_ms(ops.reference_attention_di, (o, do), bnd_prep, prep_bytes)
-    dq_plain_ms, _ = time_cold_ms(lambda a: ops.reference_attention_bwd_dq(a, sc), (acc,), bnd_dq,
-                                  dq_bytes)
-    # Library yardstick of the pre-pass: rowsum(O·dO) in one call.
-    di_lib_ms, _ = time_cold_ms(lambda o_, do_: torch.linalg.vecdot(o_, do_, dim=-1), (o, do),
-                                bnd_prep, prep_bytes)
-    # Library yardstick: SDPA's backward alone (PyTorch picks its backend;
-    # the forward is excluded), by device time: its host enqueue is about
-    # as long as its device time, so an eager loop would time the host.
-    ql, kl, vl = (tt.detach().requires_grad_() for tt in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, scale=sc)
-    lib_ms = device_ms(lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), do, retain_graph=True))
-    lib_name = sdpa_out.grad_fn.name()
-    del ql, kl, vl, sdpa_out
+    t7 = attention_bwd_times(a7, TB, heads, S, hd)
+    prod, bnd_prep, bnd_main, bnd_dq, bnd_all = (t7[n] for n in (
+        "prod", "bnd_prep", "bnd_main", "bnd_dq", "bnd_all"))
+    prep_ms, main_ms, dq_ms, bwd_ms, plain_ms, lib_ms = (t7[n] for n in (
+        "prep_ms", "main_ms", "dq_ms", "bwd_ms", "plain_ms", "lib_ms"))
     lib_file = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     src = "drivescenegen_torch/csrc/flash_attention_bwd.cu"
     rows["attention_bwd_prep"] = KernelRow("attention_bwd_prep", "cuda", src, f"{lib_file}:273")
     rows["attention_bwd_main"] = KernelRow("attention_bwd_main", "cuda", src, f"{lib_file}:941")
     rows["attention_bwd_dq"] = KernelRow("attention_bwd_dq", "cuda", src, f"{lib_file}:1287")
-    rows["attention_bwd_prep"].add(1, e_di, m_di, prep_ms, di_plain_ms, bnd_prep, di_lib_ms)
+    rows["attention_bwd_prep"].add(1, e_di, m_di, prep_ms, t7["di_plain_ms"], bnd_prep,
+                                   t7["di_lib_ms"])
     # plain_ms and library_ms of the main row are the whole backward's: no
     # plain or library call computes its outputs alone.
     rows["attention_bwd_main"].add(1, e_main, m_main, main_ms, plain_ms, bnd_main, lib_ms)
     rows["attention_bwd_main"].d["also_replaces"] = f"{lib_file}:1287 (dQ's products)"
     rows["attention_bwd_main"].d["yardsticks_cover"] = (
         "the whole backward, all three launches (plain_ms, library_ms)")
-    rows["attention_bwd_dq"].add(1, e_dq, m_dq, dq_ms, dq_plain_ms, bnd_dq)
-    print(f"attention_bwd {label}: pre-pass {prep_ms:.4f} ms over {prep_copies} input copies "
-          f"(warm in L2 {prep_warm:.4f}; bound {bnd_prep[0]:.4f}, {bnd_prep[1]}; torch.linalg.vecdot "
-          f"{di_lib_ms:.4f}), main pass "
-          f"{main_ms:.4f} ms ({5 * prod / main_ms / 1e9:.1f} TFLOP/s, bound {bnd_main[0]:.4f}, "
-          f"{bnd_main[1]}), dQ pass {dq_ms:.4f} ms over {dq_copies} input copies (warm in L2 "
-          f"{dq_warm:.4f}; bound {bnd_dq[0]:.4f}, {bnd_dq[1]}); the three {prep_ms + main_ms + dq_ms:.4f} ms, one "
-          f"attention_bwd call {bwd_ms:.4f} ms ({5 * prod / bwd_ms / 1e9:.1f} TFLOP/s on the five "
-          f"products) against the backward's bound {bnd_all[0]:.4f} ms ({bnd_all[1]}), SDPA "
-          f"backward ({lib_name}, device time) {lib_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    del a7, q, k, v, do, o, lse, di, sems, acc
+    rows["attention_bwd_dq"].add(1, e_dq, m_dq, dq_ms, t7["dq_plain_ms"], bnd_dq)
+    print_bwd_times(t7, label)
+    del a7
 
     # Ragged, checked and not timed: other batch and heads, the smallest S
     # the backward takes (o and lse from the plain forward: the forward
@@ -1938,15 +2225,18 @@ def main() -> int:
     del q, k, v, do, o, lse, got, ref, again
     torch.cuda.empty_cache()
 
-    def train_path(mcfg, tcfg, batch, noise, t_, keep, label):
+    def train_path(mcfg, tcfg, batch, noise, t_, keep, label, keep_inputs=None):
         """One train step with kernels against one with plain versions on the
         same weights, batch, noise, t (and keep mask): loss, grad_norm,
         gradient cosine, every parameter's gradient, the launches; then a
         run of steps: launches, ms per step, samples/s, the device's idle
-        share and peak memory. Returns those numbers."""
+        share and peak memory. Returns those numbers. keep_inputs: a path
+        the weights, batch, noise and t are saved to (phase 15 reads them)."""
         TB = batch.shape[0]
         schedule = make_schedule(device=dev)
         weights = UNet2D(mcfg, device=dev, generator=gen).state_dict()
+        if keep_inputs:
+            torch.save(dict(weights=weights, batch=batch, noise=noise, t=t_), keep_inputs)
 
         def train_setup(plain):
             m = UNet2D(mcfg, device=dev, for_training=True, plain=plain)
@@ -2025,7 +2315,8 @@ def main() -> int:
                           device=dev).to(torch.uint8)
     noise = randn(TB, S0, S0, tcfg_model.in_channels)
     tt_ = torch.randint(0, 1000, (TB,), generator=gen, device=dev)
-    tr = train_path(tcfg_model, tcfg, batch, noise, tt_, None, f"batch {TB}")
+    inputs7 = os.path.join(work, "train7_inputs.pt")  # phase 15 steps on them again
+    tr = train_path(tcfg_model, tcfg, batch, noise, tt_, None, f"batch {TB}", keep_inputs=inputs7)
     med_ms, step_ms, idle, peak_gb, train_counts = (tr[k] for k in ("med_ms", "step_ms", "idle",
                                                                     "peak_gb", "counts"))
     for name, row in rows.items():
@@ -2368,6 +2659,42 @@ def main() -> int:
     scale_numbers = phase_scale(here, work, model_dir, os.path.join(work, "gen6"),
                                 os.path.join(work, "train7", "run"), train_path, rows, med_ms)
 
+    # --------------------------------------------------------------- 15
+    phase(f"15 tensor parallelism: the attention kernels at heads/tp; config-3's train step at "
+          f"model {TP_MODEL} on two gloo ranks on the card; checkpoints across tp")
+    t15 = time.perf_counter()
+    # 15a: the attention's four train-step launches at the heads one rank
+    # runs at tp = 2 and 4, each against its plain version, two runs of the
+    # backward bit-identical (attention_bwd_checks), and timed.
+    for tp in (2, 4):
+        h_tp = heads // tp
+        label = f"[{TB},{h_tp},{S},{hd}]"
+        a15 = attention_bwd_checks(TB, h_tp, S, hd)
+        t15a = attention_bwd_times(a15, TB, h_tp, S, hd)
+        print(f"attention_with_lse {label} (tp {tp}): {t15a['fwd_ms']:.4f} ms "
+              f"({2 * t15a['prod'] / t15a['fwd_ms'] / 1e9:.1f} TFLOP/s), bound "
+              f"{t15a['bnd_fwd'][0]:.4f} ms ({t15a['bnd_fwd'][1]}), SDPA forward "
+              f"{t15a['fwd_lib_ms']:.4f} ms, plain {t15a['fwd_plain_ms']:.4f} ms")
+        print_bwd_times(t15a, f"{label} (tp {tp})")
+        for name, key, plain_key, lib_key, bnd in (
+                ("attention", "fwd_ms", "fwd_plain_ms", "fwd_lib_ms", "bnd_fwd"),
+                ("attention_bwd_prep", "prep_ms", "di_plain_ms", "di_lib_ms", "bnd_prep"),
+                ("attention_bwd_main", "main_ms", "plain_ms", "lib_ms", "bnd_main"),
+                ("attention_bwd_dq", "dq_ms", "dq_plain_ms", None, "bnd_dq")):
+            err = a15["errs"]["attention_with_lse" if name == "attention" else name][0]
+            rows[name].d.setdefault("tp_shapes", {})[f"tp {tp}: {label}"] = dict(
+                ms=t15a[key], plain_ms=t15a[plain_key],
+                library_ms=t15a[lib_key] if lib_key else None, bound_ms=t15a[bnd][0],
+                bound_by=t15a[bnd][1], max_abs_err=err)
+        del a15, t15a
+        torch.cuda.empty_cache()
+    tp_numbers = phase_tp_train(here, work, inputs7)
+    for name, row in rows.items():
+        row.d["launches_by_path"][f"phase 15 TP train step, model {TP_MODEL}, batch {TB}, "
+                                  f"each rank (x1)"] = tp_numbers["ranks"][0]["launches_step1"][name]
+    tp_numbers["phase_s"] = time.perf_counter() - t15
+    print(f"phase 15: {tp_numbers['phase_s']:.1f} s")
+
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
@@ -2392,6 +2719,7 @@ def main() -> int:
                                   "config5_train_cli_seconds": cli5_s, "stage2": stage2_numbers,
                                   "front_end": front_end_numbers,
                                   "training_at_scale": scale_numbers,
+                                  "tensor_parallel": tp_numbers,
                                   "script_s": time.perf_counter() - t_main,
                                   "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
@@ -2402,6 +2730,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-worker"]:  # one rank of phase 15b
+        sys.exit(tp_worker(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

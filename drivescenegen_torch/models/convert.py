@@ -15,7 +15,7 @@ drivescenegen_tpu/models/import_diffusers.py:118-):
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -65,21 +65,29 @@ def flax_to_torch(flat: Dict[str, np.ndarray], cfg: ModelConfig) -> Dict[str, to
     return out
 
 
+def flax_path(key: str, ndim: int) -> Tuple[str, Tuple[int, ...]]:
+    """The flax path of the state-dict key `key` of an `ndim`-dimensional
+    parameter, and the permutation from the torch layout to flax's: flax
+    dimension d is torch dimension perm[d]."""
+    *mods, leaf = key.split(".")
+    if leaf == "bias":
+        name, perm = "bias", (0,)
+    elif ndim == 4:
+        name, perm = "kernel", (2, 3, 1, 0)
+    elif ndim == 2:
+        name, perm = "kernel", (1, 0)
+    else:
+        name, perm = "scale", (0,)
+    return "/".join(["params", *mods, name]), perm
+
+
 def torch_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of flax_to_torch: the flat flax tree of a state dict."""
     flat: Dict[str, np.ndarray] = {}
     for key, value in state_dict.items():
-        *mods, leaf = key.split(".")
         arr = value.detach().to("cpu", torch.float32).numpy()
-        if leaf == "bias":
-            name = "bias"
-        elif arr.ndim == 4:
-            name, arr = "kernel", arr.transpose(2, 3, 1, 0)
-        elif arr.ndim == 2:
-            name, arr = "kernel", arr.T
-        else:
-            name = "scale"
-        flat["/".join(["params", *mods, name])] = np.ascontiguousarray(arr)
+        path, perm = flax_path(key, arr.ndim)
+        flat[path] = np.ascontiguousarray(arr.transpose(perm))
     return flat
 
 

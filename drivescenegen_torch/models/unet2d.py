@@ -41,6 +41,23 @@ masks of a DropoutMasks handed to forward. The sampling arm is
 deterministic, so dropout there is the identity: it keeps the fused
 gn_silu_conv3x3 kernel, which computes the function the JAX module's
 unfused path at dropout > 0 (:209) computes when deterministic.
+
+Tensor parallelism (`mesh` with a model axis over 1; parallel/mesh.py)
+shards the training arm's blocks by the JAX package's rules, Megatron
+style: TimeMLP's dense1 and each ResnetBlock's conv1, time_proj and norm2
+are column-parallel, dense2, conv2 and the shortcut row-parallel with one
+all_reduce a block (reduce_from_model; the biases of conv2 and the
+shortcut added once, after it); the attention's qkv is split by heads, so
+its kernels run at heads / tp heads, and proj_out is row-parallel. The
+branch of a block passes through one copy_to_model, whose backward sums
+the gradients over the model group: the input of the column-parallel conv1
+(after the replicated norm1, so that norm1's gradient is whole on every
+rank) and the shortcut's input; the identity residual takes x as it is, or
+its gradient would count tp times. conv_in, conv_out, the down/upsample
+convs, norm1, the attention's norm and norm_out stay replicated, as in
+JAX. A block the plan (mesh.tp_plan) does not shard runs replicated. The
+weights are drawn whole, as the one-process model draws them, and each
+rank keeps its shards, so tp ranks hold the one-process model's weights.
 """
 
 from __future__ import annotations
@@ -58,6 +75,8 @@ from drivescenegen_torch.config import ModelConfig
 from drivescenegen_torch.ops.attention import attention_bwd_shape_error, attention_shape_error
 from drivescenegen_torch.ops.gn_silu_conv import conv_shape_error
 from drivescenegen_torch.ops.group_norm import stats_shape_error
+from drivescenegen_torch.parallel.mesh import (Mesh, ModelAxis, copy_to_model, model_axis,
+                                               reduce_from_model, tp_plan)
 from drivescenegen_torch.utils.device import resolve_device
 
 GN_EPS = 1e-6
@@ -174,15 +193,20 @@ class DropoutMasks:
         self.generator, self.masks, self.batch, self.rows = generator, masks, batch, rows
         self.drawn = 0
 
-    def apply(self, h: torch.Tensor) -> torch.Tensor:
+    def apply(self, h: torch.Tensor, cols: slice = slice(None),
+              width: Optional[int] = None) -> torch.Tensor:
         """h / keep where the next mask is set, 0 elsewhere (flax's
-        lax.select(mask, h / keep, 0)), in h's dtype."""
+        lax.select(mask, h / keep, 0)), in h's dtype. A channel shard h of a
+        tensor-parallel block is columns `cols` of an activation `width`
+        channels wide: its mask is those columns of the full-width mask
+        (drawn, or handed in at full width), so tp ranks draw what one
+        process draws."""
         if self.masks is not None:
-            mask = self.masks[self.drawn].to(h.device)
+            mask = self.masks[self.drawn][..., cols].to(h.device)
         else:
-            shape = (self.batch or h.shape[0],) + tuple(h.shape[1:])
+            shape = (self.batch or h.shape[0],) + tuple(h.shape[1:-1]) + (width or h.shape[-1],)
             u = torch.rand(shape, generator=self.generator, device=self.generator.device)
-            mask = (u < self.keep)[self.rows].to(h.device)
+            mask = (u < self.keep)[self.rows][..., cols].to(h.device)
         self.drawn += 1
         return torch.where(mask, h / self.keep, torch.zeros_like(h))
 
@@ -194,13 +218,24 @@ def _same_pad(n: int, k: int = 3, s: int = 2):
 
 
 class TimeMLP(nn.Module):
+    """dense1 -> SiLU -> dense2. Under tensor parallelism (`tp` set) dense1
+    is column-parallel and dense2 row-parallel: its partial products summed
+    over the model group, then its bias added once. The sinusoidal input
+    needs no gradient, so it needs no copy_to_model."""
+
+    tp: Optional[ModelAxis] = None
+
     def __init__(self, cin: int, embed_dim: int, device=None):
         super().__init__()
         self.dense1 = Dense(cin, embed_dim, device)
         self.dense2 = Dense(embed_dim, embed_dim, device)
 
     def forward(self, t_emb):
-        return self.dense2(F.silu(self.dense1(t_emb)))
+        h = F.silu(self.dense1(t_emb))
+        if self.tp is None:
+            return self.dense2(h)
+        out = reduce_from_model(self.tp, F.linear(h, self.dense2.cast("weight", h.dtype)))
+        return out + self.dense2.cast("bias", h.dtype)
 
 
 class ResnetBlock(nn.Module):
@@ -208,7 +243,10 @@ class ResnetBlock(nn.Module):
     a 1x1 shortcut when the channel count changes. Pair mode (`skip` given)
     takes what would be concat(x, skip) without building it: the GroupNorm
     statistics fold jointly across the boundary, and conv1/shortcut split
-    their kernels along the input channels."""
+    their kernels along the input channels. Under tensor parallelism (`tp`
+    set; the training arm) it holds its shards: _tp_forward."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, cin: int, cout: int, temb_dim: int, groups: int, plain: bool,
                  for_training: bool = False, device=None):
@@ -231,6 +269,8 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x, temb, skip: Optional[torch.Tensor] = None,
                 dropout: Optional[DropoutMasks] = None):
+        if self.tp is not None:
+            return self._tp_forward(x, temb, skip, dropout)
         if skip is None:
             h = self._gn_conv(x, self.norm1, self.conv1)
         else:
@@ -256,11 +296,61 @@ class ResnetBlock(nn.Module):
                      + self.shortcut.cast("bias", x.dtype))
         return x + h
 
+    def _tp_forward(self, x, temb, skip, dropout):
+        """The block on its shards: norm1 replicated; conv1 and time_proj
+        column-parallel (this rank's output channels); norm2 on them, with
+        groups / tp groups; conv2 and the shortcut row-parallel, their
+        partial sums added and reduced by one all_reduce, then their biases.
+        `temb` is the time embedding after copy_to_model (UNet2D.forward).
+        In pair mode the shortcut's input-channel shard may straddle the
+        x | skip boundary: each part takes the channels of it that fall in
+        the shard."""
+        tp, dt = self.tp, x.dtype
+        parts = (x,) if skip is None else (x, skip)
+        if skip is None:
+            hn = (group_norm_silu_nhwc(x, self.norm1, self.groups),)
+        else:
+            hn = ops.reference_group_norm_silu_multi(parts, self.norm1.weight, self.norm1.bias,
+                                                     self.groups, GN_EPS)
+        has_shortcut = hasattr(self, "shortcut")
+        copied = copy_to_model(tp, *hn, *(parts if has_shortcut else ()))
+        hn, sc_in = copied[:len(hn)], copied[len(hn):]
+        w = self.conv1.cast("weight", dt)
+        h = self.conv1.cast("bias", dt)
+        off = 0
+        for part in hn:
+            h = conv_nhwc(part, w[:, off:off + part.shape[-1]], None) + h
+            off += part.shape[-1]
+        h = h + self.time_proj(F.silu(temb))[:, None, None, :]
+        h = group_norm_silu_nhwc(h, self.norm2, self.groups // tp.size)
+        if dropout is not None:
+            n = h.shape[-1]
+            h = dropout.apply(h, slice(tp.index * n, (tp.index + 1) * n), n * tp.size)
+        out = conv_nhwc(h, self.conv2.cast("weight", dt), None)
+        if has_shortcut:
+            w = self.shortcut.cast("weight", dt)
+            lo, hi = tp.index * w.shape[1], (tp.index + 1) * w.shape[1]
+            off = 0
+            for part in sc_in:
+                a, b = max(lo, off), min(hi, off + part.shape[-1])
+                if a < b:
+                    out = out + conv_nhwc(part[..., a - off:b - off], w[:, a - lo:b - lo], None)
+                off += part.shape[-1]
+        out = reduce_from_model(tp, out) + self.conv2.cast("bias", dt)
+        if has_shortcut:
+            return out + self.shortcut.cast("bias", dt)
+        return x + out
+
 
 class AttentionBlock(nn.Module):
     """Spatial self-attention over H*W tokens with a fused qkv projection
     and a residual add (diffusers Attention in UNetMidBlock2D). Under
-    autograd ops.attention runs its Function: kernels forward and backward."""
+    autograd ops.attention runs its Function: kernels forward and backward.
+    Under tensor parallelism (`tp` set) qkv holds this rank's heads' rows
+    of q, k and v (mesh.Split parts=3), the attention runs on heads / tp
+    heads, and proj_out is row-parallel, its bias added after the reduce."""
+
+    tp: Optional[ModelAxis] = None
 
     def __init__(self, channels: int, head_dim: int, groups: int, plain: bool, device=None):
         super().__init__()
@@ -277,11 +367,19 @@ class AttentionBlock(nn.Module):
         h = F.group_norm(x.permute(0, 3, 1, 2).float(), self.groups,
                          self.norm.weight, self.norm.bias, eps=GN_EPS)
         h = h.to(x.dtype).permute(0, 2, 3, 1).reshape(B, H * W, C)
+        if self.tp is not None:
+            (h,) = copy_to_model(self.tp, h)
+            heads //= self.tp.size
+        c = heads * hd
         qkv = self.qkv(h)
-        q, k, v = (t.view(B, H * W, heads, hd).transpose(1, 2) for t in qkv.split(C, dim=-1))
+        q, k, v = (t.view(B, H * W, heads, hd).transpose(1, 2) for t in qkv.split(c, dim=-1))
         fn = ops.reference_attention if self.plain else ops.attention
-        out = fn(q, k, v, 1.0 / math.sqrt(hd))
-        out = self.proj_out(out.transpose(1, 2).reshape(B, H * W, C))
+        out = fn(q, k, v, 1.0 / math.sqrt(hd)).transpose(1, 2).reshape(B, H * W, c)
+        if self.tp is None:
+            out = self.proj_out(out)
+        else:
+            out = reduce_from_model(self.tp, F.linear(out, self.proj_out.cast("weight", x.dtype)))
+            out = out + self.proj_out.cast("bias", x.dtype)
         return x + out.reshape(B, H, W, C)
 
 
@@ -359,31 +457,34 @@ def gn_mul_add_shapes(cfg: ModelConfig) -> Counter:
     return shapes
 
 
-def mid_attention_shape(cfg: ModelConfig) -> Tuple[int, int, int]:
-    """(heads, S, D) of the mid-block attention: S tokens of the lowest
-    resolution, head dim D."""
+def mid_attention_shape(cfg: ModelConfig, model: int = 1) -> Tuple[int, int, int]:
+    """(heads, S, D) of the mid-block attention on one rank: S tokens of the
+    lowest resolution, head dim D; with a model axis of `model`, heads /
+    model heads when they divide it (mesh.param_shardings), else all."""
     ch = tuple(cfg.block_out_channels)
     side = cfg.sample_size
     for _ in range(len(ch) - 1):
         side = -(-side // 2)
     heads = max(1, ch[-1] // cfg.attention_head_dim)
-    return heads, side * side, ch[-1] // heads
+    local = heads // model if heads % model == 0 else heads
+    return local, side * side, ch[-1] // heads
 
 
-def kernel_limit_errors(cfg: ModelConfig, for_training: bool = False) -> List[str]:
+def kernel_limit_errors(cfg: ModelConfig, for_training: bool = False, model: int = 1
+                        ) -> List[str]:
     """Every limit of the hand-written kernels that a UNet2D forward of
     `cfg` on CUDA would break, one message per distinct breach; empty when
     the kernels take every call. The sampling arm runs all four forward
     kernels at the shapes conv3x3_shapes, gn_mul_add_shapes and
     mid_attention_shape list; the training arm (for_training=True) runs
-    only the attention, forward and backward. The limits are the wrappers'
-    own predicates, read from the kernel sources (ops/build.py
-    source_int)."""
+    only the attention, forward and backward, at the heads of a model axis
+    of `model` (mid_attention_shape). The limits are the wrappers' own
+    predicates, read from the kernel sources (ops/build.py source_int)."""
     errors = []
     kernels = "the attention kernels" if for_training else "silu_conv3x3, gn_mul_add and attention"
     if cfg.dtype != "bfloat16":
         errors.append(f"{kernels} take bfloat16 activations, got dtype {cfg.dtype}")
-    heads, S, D = mid_attention_shape(cfg)
+    heads, S, D = mid_attention_shape(cfg, model)
     checks = [("attention", attention_shape_error(S, D))]
     if for_training:
         checks.append(("attention backward", attention_bwd_shape_error(S, D)))
@@ -411,14 +512,25 @@ class UNet2D(nn.Module):
     Weights are drawn at construction from `generator` (flax-like init:
     lecun-normal kernels, zero biases, unit norm scales); pass a seeded
     torch.Generator on `device`, or load a state dict afterwards.
+
+    `mesh` (parallel/mesh.py) with a model axis over 1 shards the training
+    arm (module docstring); `tp_plan` then names each sharded parameter's
+    Split, and the state dict holds this rank's shards
+    (mesh.shard_state_dict and gather_state_dict carry a full one to them
+    and back). The sampling arm runs with replicated parameters.
     """
 
     def __init__(self, cfg: ModelConfig, device="cuda", plain: bool = False,
-                 generator: Optional[torch.Generator] = None, for_training: bool = False):
+                 generator: Optional[torch.Generator] = None, for_training: bool = False,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         device = resolve_device(device)
+        axis = model_axis(mesh)
+        if axis is not None and not for_training:
+            raise ValueError("tensor parallelism (mesh.model > 1) shards the training arm "
+                             "(for_training=True); the sampling arm runs replicated, with no mesh")
         if device.type == "cuda" and not plain:
-            errors = kernel_limit_errors(cfg, for_training)
+            errors = kernel_limit_errors(cfg, for_training, axis.size if axis else 1)
             if errors:
                 raise ValueError(
                     "this model is outside the CUDA kernels' limits:\n  " + "\n  ".join(errors)
@@ -461,6 +573,15 @@ class UNet2D(nn.Module):
             if generator is None:
                 generator = torch.Generator(device=device).manual_seed(0)
             self.init_weights(generator)
+        self.tp = axis
+        self.tp_plan = {} if axis is None else tp_plan(
+            {n: p.shape for n, p in self.named_parameters()}, axis.size, cfg)
+        for name, split in self.tp_plan.items():
+            block, layer, leaf = name.split(".")
+            self.get_submodule(block).tp = axis
+            module = self.get_submodule(f"{block}.{layer}")
+            shard = split.take(getattr(module, leaf).detach(), axis.index, axis.size)
+            setattr(module, leaf, nn.Parameter(shard.contiguous()))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -482,6 +603,12 @@ class UNet2D(nn.Module):
         B = x.shape[0]
         t = torch.as_tensor(t, device=x.device).reshape(-1).expand(B)
         temb = self.time_mlp(timestep_embedding(t, ch[0]).to(dt))
+        # One copy_to_model serves every sharded block's time_proj, so the
+        # embedding's gradient is summed over the model group once.
+        temb_tp = copy_to_model(self.tp, temb)[0] if self.tp is not None else None
+
+        def resnet(block, h, **kw):
+            return block(h, temb if block.tp is None else temb_tp, dropout=dropout, **kw)
 
         x = x.to(dt)
         if cfg.cond_channels > 0:
@@ -493,24 +620,24 @@ class UNet2D(nn.Module):
         skips = [h]
         for i in range(n):
             for j in range(cfg.layers_per_block):
-                h = getattr(self, f"down_{i}_res_{j}")(h, temb, dropout=dropout)
+                h = resnet(getattr(self, f"down_{i}_res_{j}"), h)
                 skips.append(h)
             if i != n - 1:
                 h = getattr(self, f"down_{i}_downsample")(h)
                 skips.append(h)
 
-        h = self.mid_res_0(h, temb, dropout=dropout)
+        h = resnet(self.mid_res_0, h)
         h = self.mid_attn(h)
-        h = self.mid_res_1(h, temb, dropout=dropout)
+        h = resnet(self.mid_res_1, h)
 
         for i in range(n):
             for j in range(cfg.layers_per_block + 1):
                 skip = skips.pop()
                 block = getattr(self, f"up_{i}_res_{j}")
                 if cfg.split_skip_conv:
-                    h = block(h, temb, skip=skip, dropout=dropout)
+                    h = resnet(block, h, skip=skip)
                 else:
-                    h = block(torch.cat([h, skip], dim=-1), temb, dropout=dropout)
+                    h = resnet(block, torch.cat([h, skip], dim=-1))
             if i != n - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
 

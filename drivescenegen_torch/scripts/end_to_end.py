@@ -25,7 +25,10 @@ the batch rounded to the data axis, every rank sampling its rows of batch
 the quantized pixels and packed skeletons of every rank (all_gather) and
 alone runs the host side (PNG encode, graph passes, stats), exactly as
 one process does; a batch it resumes from disk it runs alone, and it
-tells the other ranks so (a broadcast flag per batch).
+tells the other ranks so (a broadcast flag per batch). With mesh.model >
+1 the parameters are replicated and the data axis is the world over it:
+the ranks of a model group sample the same rows, and rank 0 gathers over
+its data group.
 
   python -m drivescenegen_torch.scripts.end_to_end --model_dir <dir> \
       --output_dir <dir> --num_scenes 5000 --n_workers 2 [--device cpu] [--plain]
@@ -178,11 +181,13 @@ def main(argv=None):
     local_shape = (rows.stop - rows.start,) + shape[1:]
 
     def gathered(t):
-        """The batch's rows of every rank, in rank order (rank 0's use)."""
+        """The batch's rows of every data coordinate, in order, over the data
+        group (rank 0's use; under mesh.model > 1 the other data groups
+        hold the same rows and gather them unused)."""
         if not mesh.distributed:
             return t
-        parts = [torch.empty_like(t) for _ in range(mesh.world)]
-        torch.distributed.all_gather(parts, t.contiguous())
+        parts = [torch.empty_like(t) for _ in range(mesh.shape["data"])]
+        torch.distributed.all_gather(parts, t.contiguous(), group=mesh.data_group)
         return torch.cat(parts)
 
     def run_batch(num: int):

@@ -28,7 +28,10 @@ batch is rounded down to a multiple of the data axis (at least one row a
 rank), as the JAX CLI rounds it; every rank draws batch `num`'s global x_T
 and noise and samples its rows of them (row_draws), and writes those rows
 under their global file names. So the PNGs of a W-rank run are those of
-the one-process run with the same batch and seed.
+the one-process run with the same batch and seed. A mesh with mesh.model >
+1 runs as the JAX CLI runs it: the parameters replicated, the data axis the
+world over mesh.model; the ranks of a model group sample the same rows
+(those of their data coordinate), and its model-index-0 rank writes them.
 """
 
 from __future__ import annotations
@@ -204,7 +207,7 @@ def main(argv=None):
                 logger.info(f"first batch ({batch_size}) in {time.perf_counter() - t0:.1f}s")
             if imgs.shape[-1] == 1:
                 imgs = imgs[..., 0]  # PIL takes no [H, W, 1] array: a gray PNG
-            for i in range(imgs.shape[0]):
+            for i in range(imgs.shape[0] if mesh.model_index == 0 else 0):
                 from PIL import Image
 
                 Image.fromarray(imgs[i]).save(os.path.join(

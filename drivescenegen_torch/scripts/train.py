@@ -8,16 +8,22 @@
 
 AdamW with a cosine-warmup lr, bf16 activations over f32 params, the
 attention's forward and backward kernels on the card (training/trainer.py).
-Under torchrun it is data-parallel (parallel/mesh.py): NCCL on the card,
-gloo with --device cpu; train.batch_size is the global batch, which the
-data axis must divide, and each rank steps on its rows of it.
+Under torchrun it runs on the config's ("data", "model") mesh
+(parallel/mesh.py): NCCL on the card, one GPU a rank, gloo with --device
+cpu. train.batch_size is the global batch, which the data axis must
+divide, and each data coordinate steps on its rows of it; mesh.model > 1
+shards the model over each group of mesh.model ranks (tensor
+parallelism, the JAX package's rules), and the data axis is the world
+over it.
 Writes <output_dir>/config.yaml, logs/metrics.jsonl and logs every
 log_every steps, and at each epoch end a full-state checkpoint
 (checkpoints/step_N.pt), params.npz (the EMA weights when ema_decay > 0),
 which the generation CLI samples from, and a sample PNG (samples/NNN.png;
 DDIM when eval_inference_steps <= 100, else DDPM); rank 0 writes them. A
 file <output_dir>/STOP ends the run at the next log line, after a
-checkpoint and an export.
+checkpoint and an export. Checkpoints and params.npz hold the whole model
+whatever mesh.model is, so a run resumes, or warm-starts, at another;
+the eval sample is rank 0's, on a full model, from the gathered weights.
 A conditional model (cond_channels > 0) reads cond_channels +
 in_channels channels of each image, the conditioning first, and trains
 with cond-dropout; its eval samples are unconditional, as in the JAX
@@ -71,6 +77,7 @@ from drivescenegen_torch.models import UNet2D
 from drivescenegen_torch.parallel import make_mesh
 from drivescenegen_torch.training import create_optimizer, init_train_state, make_train_step
 from drivescenegen_torch.training.checkpoint import (
+    full_params,
     latest_step,
     restore_checkpoint,
     restore_params,
@@ -185,8 +192,9 @@ def _device_healthy(device: str = "cuda", timeout_s: float = 180.0) -> bool:
 def supervised_commands(argv, cfg, device: str):
     """The child's command and its relaunch form with --resume: argv
     without --supervise, run as the plain module, or through
-    torch.distributed.run with one process per data rank when the mesh's
-    data axis is over 1 (-1: every GPU, one process on the CPU)."""
+    torch.distributed.run with one process per rank of the mesh when it
+    has more than one (data -1: every GPU, or the model axis's ranks on
+    the CPU)."""
     cleaned, skip = [], False
     for a in argv:
         if skip:
@@ -195,11 +203,12 @@ def supervised_commands(argv, cfg, device: str):
             skip = True
         elif not a.startswith("--supervise="):
             cleaned.append(a)
-    n_data = cfg.mesh.data if cfg.mesh.data > 0 else (
-        torch.cuda.device_count() if torch.device(device).type == "cuda" else 1)
+    model = max(1, cfg.mesh.model)
+    n_proc = cfg.mesh.data * model if cfg.mesh.data > 0 else (
+        torch.cuda.device_count() if torch.device(device).type == "cuda" else model)
     launcher = [sys.executable, "-m"]
-    if n_data > 1:
-        launcher += ["torch.distributed.run", "--standalone", "--nproc_per_node", str(n_data),
+    if n_proc > 1:
+        launcher += ["torch.distributed.run", "--standalone", "--nproc_per_node", str(n_proc),
                      "-m"]
     cmd = launcher + ["drivescenegen_torch.scripts.train"] + cleaned
     return cmd, (cmd if "--resume" in cleaned else cmd + ["--resume"])
@@ -322,7 +331,9 @@ def main(argv=None):
     else:
         logger.setLevel("WARNING")
     logger.info(f"mesh: {mesh.shape} on {device}" + (" (torch.distributed)" if mesh.distributed
-                                                      else ""))
+                                                      else "")
+                + (f"; tensor parallel over {mesh.shape['model']} ranks a model group"
+                   if mesh.shape["model"] > 1 else ""))
 
     n_channels = cfg.model.in_channels + cfg.model.cond_channels
     dataset = RasterDataset(tcfg.dataset_glob, img_res=cfg.model.sample_size,
@@ -335,21 +346,23 @@ def main(argv=None):
     logger.info(f"dataset: {len(dataset)} samples, {steps_per_epoch} steps/epoch on {device}")
 
     model = UNet2D(cfg.model, device=device, for_training=True, plain=args.plain,
-                   generator=prng.for_purpose(tcfg.seed, "init", device))
+                   generator=prng.for_purpose(tcfg.seed, "init", device), mesh=mesh)
     schedule = make_schedule(cfg.diffusion, device=device)
     optimizer, lr_sched = create_optimizer(tcfg, total_steps, model.parameters())
     state = init_train_state(model, optimizer, ema=tcfg.ema_decay > 0.0)
-    logger.info(f"model parameters: {sum(p.numel() for p in model.parameters()):,}")
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info(f"model parameters: {n_params:,}" + (
+        f" on this rank ({len(model.tp_plan)} tensors sharded)" if model.tp_plan else ""))
     ckpt_dir = os.path.join(tcfg.output_dir, "checkpoints")
     if args.resume and latest_step(ckpt_dir) is not None:
-        state = restore_checkpoint(ckpt_dir, state)
+        state = restore_checkpoint(ckpt_dir, state, mesh)
         logger.info(f"resumed from step {state.step}")
     elif args.init_from:
         init_dir = args.init_from
         if os.path.isdir(os.path.join(init_dir, "checkpoints")):
             init_dir = os.path.join(init_dir, "checkpoints")
         try:
-            donor_step = restore_params(init_dir, state)
+            donor_step = restore_params(init_dir, state, mesh)
         except FileNotFoundError as e:
             raise SystemExit(f"--init_from: {e}") from None
         logger.info(f"warm-started params from {init_dir} (donor step {donor_step}; "
@@ -376,9 +389,14 @@ def main(argv=None):
                     f"pool + {info['k_str']} tail rows ({info['tail_bytes_per_step'] / 1e6:.3f} "
                     f"MB streamed a step)")
 
+    def export_params():
+        """The export's weights, whole (a collective under tensor
+        parallelism: every rank calls it)."""
+        return full_params(state, mesh, ema=state.ema_params is not None)
+
     def export_and_save():
         save_checkpoint(ckpt_dir, state, max_to_keep=tcfg.checkpoint_max_to_keep, mesh=mesh)
-        export = state.ema_params if state.ema_params is not None else model.state_dict()
+        export = export_params()
         save_params_only(tcfg.output_dir, export, mesh=mesh)
         return export
 
@@ -420,16 +438,16 @@ def main(argv=None):
             export = None
             if epoch % tcfg.save_model_epochs == 0 or last:
                 export = export_and_save()
-            if (epoch % tcfg.save_image_epochs == 0 or last) and mesh.is_main:
+            if epoch % tcfg.save_image_epochs == 0 or last:
                 if export is None:
-                    export = state.ema_params if state.ema_params is not None \
-                        else model.state_dict()
-                eval_model.load_state_dict(export)
-                path = save_sample_image(
-                    eval_model, schedule, cfg, os.path.join(tcfg.output_dir, "samples"),
-                    tcfg.seed, sampler="ddim" if tcfg.eval_inference_steps <= 100 else "ddpm",
-                    steps=tcfg.eval_inference_steps)
-                logger.info(f"epoch {epoch}: sample -> {path}")
+                    export = export_params()
+                if mesh.is_main:
+                    eval_model.load_state_dict(export)
+                    path = save_sample_image(
+                        eval_model, schedule, cfg, os.path.join(tcfg.output_dir, "samples"),
+                        tcfg.seed, sampler="ddim" if tcfg.eval_inference_steps <= 100 else "ddpm",
+                        steps=tcfg.eval_inference_steps)
+                    logger.info(f"epoch {epoch}: sample -> {path}")
             mesh.barrier()
     tracer.close()
 

@@ -33,6 +33,15 @@ reduction. The gradients are averaged over the data axis by one coalesced
 all_reduce (all_reduce_mean_, not DDP: the model stays unwrapped, so its
 state-dict names are the flax tree's) before the global-norm clip; the
 optimizer and EMA then make the same update on every rank.
+
+Tensor parallel (a model axis over 1: the model was built on the mesh,
+models/unet2d.py): a sharded parameter's gradient is this rank's shard,
+and a replicated one's is whole and the same on every rank of the model
+group (copy_to_model summed what its column-parallel consumers sent
+back). Both are averaged over the data group only; the global norm sums
+the squares of the shards over the model group and counts the replicated
+gradients once, so the clip scales by the whole model's norm, as optax's
+does under GSPMD. AdamW and the EMA stay local and elementwise, on shards.
 """
 
 from __future__ import annotations
@@ -95,9 +104,20 @@ def init_train_state(model: UNet2D, optimizer: torch.optim.Optimizer, ema: bool 
     return TrainState(model=model, optimizer=optimizer, step=0, ema_params=ema_params)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def global_norm(tensors: List[torch.Tensor], sharded: Optional[List[bool]] = None,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm).
+    Under tensor parallelism the tensors flagged in `sharded` are this
+    rank's shards: their squares are summed over the mesh's model group,
+    the others' counted once."""
+    norms = torch.stack(torch._foreach_norm(tensors))
+    if sharded is None or not any(sharded):
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(sharded, device=norms.device)
+    sq = norms.square()
+    shard_sq = sq[mask].sum()
+    torch.distributed.all_reduce(shard_sq, group=mesh.model_group)
+    return torch.sqrt(shard_sq + sq[~mask].sum())
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float, norm: torch.Tensor) -> None:
@@ -198,7 +218,8 @@ def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], fl
         grads = [p.grad for p in params]
         loss = loss.detach()
         all_reduce_mean_(grads + [loss.reshape(1)], mesh)
-        norm = global_norm(grads)
+        sharded_ids = {id(p) for n, p in model.named_parameters() if n in model.tp_plan}
+        norm = global_norm(grads, [id(p) in sharded_ids for p in params], mesh)
         clip_by_global_norm_(grads, cfg.grad_clip_norm, norm)
         lr = lr_schedule(state.step)
         for group in opt.param_groups:

@@ -1,10 +1,15 @@
 """The shapes chip_smoke.py holds the CUDA kernels to are the shapes the
 model gives them: the GN+SiLU+conv3x3 calls and the mid-block attention
 that a UNet2D forward really makes are recorded on the CPU and compared
-with models/unet2d.py conv3x3_shapes / mid_attention_shape, and every
-full-width shape passes the kernel wrappers' limits (the same predicates
-the wrappers raise through)."""
+with models/unet2d.py conv3x3_shapes / mid_attention_shape (also under
+tensor parallelism at model 2, on two gloo ranks: heads / 2 heads a
+rank), and every full-width shape passes the kernel wrappers' limits (the
+same predicates the wrappers raise through)."""
 
+import json
+import os
+import subprocess
+import sys
 from collections import Counter
 
 import numpy as np
@@ -14,8 +19,9 @@ import torch
 from drivescenegen_torch import ops
 from drivescenegen_torch.config import ModelConfig
 from drivescenegen_torch.models import UNet2D
+from drivescenegen_torch.models.convert import torch_to_flax
 from drivescenegen_torch.models.unet2d import (conv3x3_shapes, gn_mul_add_shapes,
-                                               mid_attention_shape)
+                                               kernel_limit_errors, mid_attention_shape)
 from drivescenegen_torch.ops import build
 from drivescenegen_torch.ops import gn_silu_conv as gn_silu_conv_mod
 from drivescenegen_torch.ops import group_norm as group_norm_mod
@@ -113,6 +119,49 @@ def test_mid_attention_shape_is_the_forward_call(monkeypatch, name, plain):
     monkeypatch.setattr(ops, attr, record)
     _forward(cfg, plain)
     assert seen == [mid_attention_shape(cfg)]
+
+
+@pytest.mark.parametrize("heads", [2, 4], ids=["heads_2", "heads_4"])
+def test_mid_attention_shape_under_tensor_parallelism_is_the_forward_call(tmp_path, heads):
+    """One train step of the training arm at model 2 on two gloo ranks
+    (tests/torch_tp_worker.py): each rank's forward calls the attention at
+    mid_attention_shape(cfg, 2), heads / 2 heads of the full head dim."""
+    cfg_kw = dict(TINY, attention_head_dim=16 // heads)
+    cfg = ModelConfig(**cfg_kw)
+    net = UNet2D(cfg, device="cpu", for_training=True, generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    inputs = {"config": json.dumps({"model": cfg_kw, "train": dict(batch_size=2)}),
+              "batch": rng.normal(size=(2, 16, 16, 3)).astype(np.float32),
+              "noise_0": rng.normal(size=(2, 16, 16, 3)).astype(np.float32),
+              "t_0": np.array([3, 500])}
+    inputs.update({f"params/{k}": v for k, v in torch_to_flax(net.state_dict()).items()})
+    np.savez(tmp_path / "in.npz", **inputs)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc_per_node", "2", os.path.join(root, "tests", "torch_tp_worker.py"),
+                          str(tmp_path / "in.npz"), "2", str(tmp_path / "out.npz")],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
+    seen = [tuple(s) for s in np.load(tmp_path / "out.npz")["attention_shapes"]]
+    assert seen == [mid_attention_shape(cfg, 2)] == [(heads // 2, 64, 16 // heads)]
+    assert mid_attention_shape(cfg, 1) == (heads, 64, 16 // heads)
+
+
+def test_full_width_shapes_under_tensor_parallelism():
+    """Config-3's attention at model 2 and 4 runs 4 and 2 heads of 64 over
+    1024 tokens, within the kernels' limits; at a model axis the heads do
+    not divide it runs them all (the attention is replicated)."""
+    cfg = ModelConfig(attention_impl="flash")
+    assert [mid_attention_shape(cfg, m) for m in (1, 2, 4, 8, 3)] == [
+        (8, 1024, 64), (4, 1024, 64), (2, 1024, 64), (1, 1024, 64), (8, 1024, 64)]
+    for m in (2, 4):
+        assert kernel_limit_errors(cfg, for_training=True, model=m) == []
+    bad = ModelConfig(attention_impl="flash", attention_head_dim=32)
+    assert kernel_limit_errors(bad, True, 2) == kernel_limit_errors(bad, True) != []
 
 
 def test_full_width_shapes_pass_the_kernel_limits():

@@ -51,7 +51,7 @@ def test_make_mesh_without_torchrun_is_one_rank(no_torchrun_env):
 
 
 def test_make_mesh_errors(no_torchrun_env, monkeypatch):
-    with pytest.raises(SystemExit, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="the model axis 2 does not divide the world of 1"):
         make_mesh(MeshConfig(model=2), "cpu")
     with pytest.raises(ValueError, match="needs 2 processes, the world has 1"):
         make_mesh(MeshConfig(data=2), "cpu")
