@@ -147,9 +147,28 @@ Phases, each printed as it runs; any failure exits non-zero:
                memory; the tp = 2 checkpoint resumed at tp = 1, its next
                step against the tp = 2 run's, and the tp = 2 params.npz
                through the generation CLI
+  16. modules  the last modules' device paths: a diffusers UNet2DModel
+               checkpoint at the default widths (seeded random weights
+               under diffusers' names, .bin) through the import CLI at
+               head dim 64, its params.npz equal to the checkpoint, its
+               forward with kernels against plain under phase 4's gate,
+               then DDIM-10 at batch 8 through the generation CLI with
+               every forward kernel launched; the same weights at
+               diffusers' default head dim 8: the CLI's line names
+               --plain, UNet2D refuses at construction, a --plain DDIM-5
+               writes its PNGs; eval_cond_agents on config-5's model
+               (configs/config5_cond_128n.yaml, random weights) over 16
+               GT rasters from the rasterizer on the card, g 1 and 3,
+               DDIM-50 at batch 8, launch counts gated, its JSON printed
+               (random weights: precision and recall not gated); MFU of
+               phase 4's graph forward and phase 5's DDIM-50 by
+               utils/flops.py, and its roofline; validate_waymo
+               --rasterize on the card against the CPU (the WOMD fixture
+               exits 1 in both, as in the JAX package: its lane lies
+               outside the raster; a synthetic shard exits 0)
 
 About 580-700 s on an H100 before phase 15, builds included; phase 14
-about 260-295 s of it.
+about 260-295 s of it; phase 16 about 20 s.
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -1580,6 +1599,282 @@ def phase_tp_train(here: str, work: str, inputs7: str) -> dict:
     return out
 
 
+# Phase 16: the last modules on the card. A reference diffusers checkpoint
+# at the default widths (random weights from a seed) imported at head dim 64
+# and at diffusers' default of 8; config-5's agent evaluation; the port's
+# FLOP count against this run's forward and DDIM-50; the Waymo validator.
+IMPORT_STEPS, IMPORT_PLAIN_STEPS, EVAL_RASTERS, EVAL_STEPS = 10, 5, 16, 50
+CONFIG5_YAML = os.path.join("drivescenegen_tpu", "configs", "config5_cond_128n.yaml")
+WOMD_FIXTURE = os.path.join("tests", "fixtures", "womd_mini.tfrecord")
+DIFFUSERS_NAMES = (  # the port's module paths -> diffusers UNet2DModel's
+    (r"^time_mlp\.dense1\.", "time_embedding.linear_1."),
+    (r"^time_mlp\.dense2\.", "time_embedding.linear_2."),
+    (r"^down_(\d+)_res_(\d+)\.", r"down_blocks.\1.resnets.\2."),
+    (r"^down_(\d+)_downsample\.", r"down_blocks.\1.downsamplers.0."),
+    (r"^up_(\d+)_res_(\d+)\.", r"up_blocks.\1.resnets.\2."),
+    (r"^up_(\d+)_upsample\.", r"up_blocks.\1.upsamplers.0."),
+    (r"^mid_res_(\d)\.", r"mid_block.resnets.\1."),
+    (r"^mid_attn\.norm\.", "mid_block.attentions.0.group_norm."),
+    (r"^mid_attn\.proj_out\.", "mid_block.attentions.0.to_out.0."),
+    (r"^norm_out\.", "conv_norm_out."),
+    (r"\.time_proj\.", ".time_emb_proj."),
+    (r"\.shortcut\.", ".conv_shortcut."),
+)
+
+
+def diffusers_state_dict(state_dict) -> dict:
+    """The port's UNet2D state dict under diffusers UNet2DModel's names:
+    module paths renamed (DIFFUSERS_NAMES) and the fused qkv split into
+    to_q, to_k and to_v. The layouts are torch's on both sides, so
+    models/import_diffusers.py must give the same weights back."""
+    import re
+
+    out = {}
+    for key, value in state_dict.items():
+        if key.startswith("mid_attn.qkv."):
+            leaf = key.rsplit(".", 1)[1]
+            for name, part in zip(("to_q", "to_k", "to_v"), value.chunk(3, dim=0)):
+                out[f"mid_block.attentions.0.{name}.{leaf}"] = part.clone()
+            continue
+        for pattern, repl in DIFFUSERS_NAMES:
+            key = re.sub(pattern, repl, key)
+        out[key] = value.clone()
+    return out
+
+
+def captured(fn, *args):
+    """(fn(*args), its stdout), the stdout printed as well; a SystemExit's
+    code is returned as the result."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            result = fn(*args)
+        except SystemExit as e:
+            result = e.code
+    print(buf.getvalue(), end="")
+    return result, buf.getvalue()
+
+
+def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
+                      ddim_seconds: float) -> dict:
+    """Phase 16: the diffusers import at head dim 64 and 8, eval_cond_agents
+    on config-5, the FLOP count's MFU and roofline, validate_waymo on the
+    card. Returns its numbers for the summary."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from drivescenegen_torch import ops
+    from drivescenegen_torch.config import Config, ModelConfig, load_config, save_config
+    from drivescenegen_torch.data.preprocess import decode_scenario
+    from drivescenegen_torch.data.synthetic import make_synthetic_scenario, make_synthetic_tfrecord
+    from drivescenegen_torch.models import UNet2D
+    from drivescenegen_torch.models.convert import flax_to_torch, load_npz, save_npz, torch_to_flax
+    from drivescenegen_torch.models.unet2d import kernel_limit_errors
+    from drivescenegen_torch.ops.raster import rasterize_scenario
+    from drivescenegen_torch.scripts import (eval_cond_agents, generation, import_reference,
+                                             validate_waymo)
+    from drivescenegen_torch.utils import flops
+
+    phase(f"16 the diffusers import (head dim 64: DDIM-{IMPORT_STEPS} with the kernels; head dim "
+          f"8: refused, --plain), config-5's eval_cond_agents, MFU and roofline, validate_waymo")
+    t16 = time.perf_counter()
+    dev = torch.device("cuda")
+    per_forward = {"silu_conv3x3": 44, "gn_mul_add": 45, "silu_affine": 1, "attention": 1}
+    out = {}
+
+    # 16a: a reference checkpoint at the default widths, head dim 64, as
+    # .bin (seeded random weights, every parameter moved off its init so
+    # that biases and norms are mapped too), through the import CLI.
+    cfg = ModelConfig()
+    src = UNet2D(cfg, device="cpu", generator=torch.Generator().manual_seed(1616))
+    g = torch.Generator().manual_seed(1617)
+    with torch.no_grad():
+        for p in src.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    want = {k: v.clone() for k, v in src.state_dict().items()}
+    ckpt = os.path.join(work, "diffusers", "unet")
+    os.makedirs(ckpt)
+    torch.save(diffusers_state_dict(want), os.path.join(ckpt, "diffusion_pytorch_model.bin"))
+    cfgj = {"_class_name": "UNet2DModel", "sample_size": cfg.sample_size,
+            "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+            "layers_per_block": cfg.layers_per_block,
+            "block_out_channels": list(cfg.block_out_channels),
+            "norm_num_groups": cfg.norm_num_groups, "attention_head_dim": 64,
+            "down_block_types": ["DownBlock2D"] * 4, "up_block_types": ["UpBlock2D"] * 4,
+            "flip_sin_to_cos": True, "freq_shift": 0}
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump(cfgj, f)
+    del src
+    t0 = time.perf_counter()
+    imported = os.path.join(work, "imported64")
+    _, log = captured(import_reference.main, ["--src", ckpt, "--dst", imported])
+    out["import_s"] = time.perf_counter() - t0
+    last = log.strip().splitlines()[-1]
+    check(last == "sample with: python -m drivescenegen_torch.scripts.generation --model_dir "
+          f"{imported}", f"import CLI at head dim 64 closed with {last!r}")
+    icfg = load_config(os.path.join(imported, "config.yaml")).model
+    check(icfg.attention_head_dim == 64 and icfg.torch_pad_downsample and
+          kernel_limit_errors(icfg) == [], f"imported model config {icfg}")
+    got = flax_to_torch(load_npz(os.path.join(imported, "params.npz")), icfg)
+    check(sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want),
+          "the imported weights differ from the checkpoint's")
+    print(f"import CLI (head dim 64): {out['import_s']:.1f} s; params.npz equal to the "
+          f"checkpoint's {len(want)} tensors; torch_pad_downsample, within the kernels' limits")
+    model, _ = generation.load_model_for_sampling(load_config(), imported, dev)
+    plain = UNet2D(icfg, device=dev, plain=True).eval()
+    plain.load_state_dict(model.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(161)
+    xin = torch.randn(BATCH, cfg.sample_size, cfg.sample_size, 3, generator=gen, device=dev)
+    tin = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    with torch.no_grad():
+        eps_k, eps_p = model(xin, tin), plain(xin, tin)
+    err = (eps_k - eps_p).abs().max().item()
+    ref_max = eps_p.abs().max().item()
+    tol = FORWARD_TOL * max(1.0, ref_max)
+    print(f"imported forward, batch {BATCH}: kernels against plain max abs err {err:.4g} "
+          f"(max |eps| {ref_max:.3g}, tol {tol:.3g})")
+    check(bool(torch.isfinite(eps_k).all()) and err <= tol,
+          f"imported forward: kernel and plain eps differ by {err} > {tol}")
+    out.update(forward_max_abs_err=err, forward_max_abs_eps=ref_max, forward_tol=tol)
+    del model, plain, eps_k, eps_p, got, want
+    torch.cuda.empty_cache()
+    gen_dir = os.path.join(work, "gen16a")
+    ops.reset_launch_counts()
+    rate = generation.main(["--model_dir", imported, "--output_dir", gen_dir, "--sampler", "ddim",
+                            "--steps", str(IMPORT_STEPS), "--batch_size", str(BATCH),
+                            "--num_batches", "1", "--device", "cuda"])
+    counts = ops.launch_counts()
+    pngs = sorted(os.listdir(gen_dir))
+    name = f"phase 16a generation CLI, imported model, DDIM-{IMPORT_STEPS} batch {BATCH}"
+    want_counts = {k: per_forward.get(k, 0) * IMPORT_STEPS for k in counts}
+    print(f"{name}: {len(pngs)} PNGs at {rate:.4f} scenes/s; launches {counts}")
+    check(pngs == [f"loop_000_batch_{i:03d}.png" for i in range(BATCH)], f"{name} wrote {pngs}")
+    check(counts == want_counts, f"{name} launches {counts} != {want_counts}")
+    for k, row in rows.items():
+        row.d["launches_by_path"][name] = counts[k]
+    out["generation_scenes_per_s"] = rate
+
+    # 16b: the same weights with no attention_head_dim in config.json:
+    # diffusers' default of 8, outside the attention kernel's D = 64.
+    ckpt8 = os.path.join(work, "diffusers8", "unet")
+    os.makedirs(ckpt8)
+    os.symlink(os.path.join(ckpt, "diffusion_pytorch_model.bin"),
+               os.path.join(ckpt8, "diffusion_pytorch_model.bin"))
+    del cfgj["attention_head_dim"]
+    with open(os.path.join(ckpt8, "config.json"), "w") as f:
+        json.dump(cfgj, f)
+    imported8 = os.path.join(work, "imported8")
+    _, log = captured(import_reference.main, ["--src", ckpt8, "--dst", imported8])
+    icfg8 = load_config(os.path.join(imported8, "config.yaml")).model
+    limits = kernel_limit_errors(icfg8)
+    last = log.strip().splitlines()[-1]
+    check(icfg8.attention_head_dim == 8 and limits and last.endswith(" --plain")
+          and all(f"outside the CUDA kernels' limits: {why}" in log for why in limits),
+          f"import CLI at head dim 8: limits {limits}, closing line {last!r}")
+    try:
+        UNet2D(icfg8, device=dev)
+    except ValueError as e:
+        check("plain=True" in str(e) and all(why in str(e) for why in limits),
+              f"head dim 8 refused without naming its limits: {e}")
+        print("UNet2D at head dim 8 on CUDA refused at construction: "
+              + str(e).replace("\n", " | "))
+    else:
+        raise SmokeFailure("UNet2D at head dim 8 built on CUDA with the kernels")
+    gen8 = os.path.join(work, "gen16b")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    generation.main(["--model_dir", imported8, "--output_dir", gen8, "--sampler", "ddim",
+                     "--steps", str(IMPORT_PLAIN_STEPS), "--batch_size", "2", "--num_batches",
+                     "1", "--device", "cuda", "--plain"])
+    out["plain_head_dim8_s"] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    pngs = sorted(os.listdir(gen8))
+    print(f"generation CLI --plain, head dim 8, DDIM-{IMPORT_PLAIN_STEPS} batch 2: {pngs} in "
+          f"{out['plain_head_dim8_s']:.1f} s; launches {counts}")
+    check(pngs == ["loop_000_batch_000.png", "loop_000_batch_001.png"]
+          and set(counts.values()) == {0}, f"--plain at head dim 8 wrote {pngs}, launched {counts}")
+
+    # 16c: config-5's eval_cond_agents, random weights: precision and
+    # recall are printed, not gated.
+    yaml5 = os.path.join(here, CONFIG5_YAML)
+    cfg5 = load_config(yaml5)
+    S5 = cfg5.model.sample_size
+    dir5, ras = os.path.join(work, "model5"), os.path.join(work, "ras16")
+    os.makedirs(dir5)
+    os.makedirs(ras)
+    save_config(Config(model=cfg5.model), os.path.join(dir5, "config.yaml"))
+    model5 = UNet2D(cfg5.model, device="cpu", generator=torch.Generator().manual_seed(165))
+    save_npz(os.path.join(dir5, "params.npz"), torch_to_flax(model5.state_dict()))
+    del model5
+    for i in range(EVAL_RASTERS):
+        info = decode_scenario(make_synthetic_scenario(16000 + i, rich=True))
+        img = rasterize_scenario(info, img_res=S5, device="cuda")
+        Image.fromarray(np.round(img * 255).astype(np.uint8)).save(
+            os.path.join(ras, f"{i:03d}.png"))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result, _ = captured(eval_cond_agents.main, [
+        "--cfg_file", yaml5, "--model_dir", dir5, "--raster_dir", ras, "--guidance", "1,3",
+        "--steps", str(EVAL_STEPS), "--batch_size", str(BATCH), "--device", "cuda"])
+    eval_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check(isinstance(result, dict), f"eval_cond_agents exited {result}")
+    n_fwd = 2 * EVAL_STEPS * -(-EVAL_RASTERS // BATCH)  # one forward a step a batch, per g
+    name = (f"phase 16c eval_cond_agents, config-5, {EVAL_RASTERS} rasters, g 1,3, "
+            f"DDIM-{EVAL_STEPS} batch {BATCH}")
+    want_counts = {k: per_forward.get(k, 0) * n_fwd for k in counts}
+    print(f"{name}: {eval_s:.1f} s (model load and agent extraction included); launches {counts}")
+    check(counts == want_counts, f"{name} launches {counts} != {want_counts}")
+    check(result["n_images"] == EVAL_RASTERS and set(result["results"]) ==
+          {"guidance_1", "guidance_3"} and all(math.isfinite(v) for r in
+                                                result["results"].values() for v in r.values()),
+          f"eval_cond_agents JSON {result}")
+    for k, row in rows.items():
+        row.d["launches_by_path"][name] = counts[k]
+    out["eval_cond_agents"] = dict(result, seconds=eval_s)
+
+    # 16d: the port's FLOP count against this run's forward (phase 4, a CUDA
+    # graph) and DDIM-50 (phase 5's median), both at batch BATCH.
+    f_fwd = flops.unet2d_forward_flops(cfg, BATCH)
+    roof = flops.unet2d_roofline_seconds(cfg, BATCH)
+    mfu_fwd = f_fwd / (fwd_graph_ms / 1e3) / PEAK_BF16_FLOPS
+    mfu_ddim = STEPS * f_fwd / ddim_seconds / PEAK_BF16_FLOPS
+    print(f"FLOPs (utils/flops.py): {f_fwd / BATCH / 1e9:.2f} GFLOP a sample, {f_fwd / 1e12:.4f} "
+          f"TFLOP a forward at batch {BATCH}; MFU against {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s: "
+          f"forward as a CUDA graph ({fwd_graph_ms:.3f} ms) {100 * mfu_fwd:.2f}%, DDIM-{STEPS} "
+          f"({ddim_seconds:.3f} s) {100 * mfu_ddim:.2f}%; roofline {1e3 * roof['t_roofline_s']:.3f}"
+          f" ms (FLOPs alone {1e3 * roof['t_flops_only_s']:.3f}, bytes alone "
+          f"{1e3 * roof['t_mem_only_s']:.3f}; ceiling {100 * roof['mfu_ceiling']:.1f}%) against "
+          f"the measured {fwd_graph_ms:.3f} ms "
+          f"({100 * roof['t_roofline_s'] * 1e3 / fwd_graph_ms:.1f}% of it)")
+    out["flops"] = dict(forward_flops=f_fwd, mfu_forward_graph=mfu_fwd, mfu_ddim=mfu_ddim,
+                        roofline=roof, forward_graph_ms=fwd_graph_ms)
+
+    # 16e: validate_waymo --rasterize on the card against the CPU. On the
+    # fixture both exit 1: its one lane lies ~100 m from the ego, outside
+    # the 40 m half range, so the raster holds no lane pixel (the JAX
+    # package's validator says the same; tests/test_torch_validate_visualize.py).
+    # A synthetic shard passes.
+    shard = os.path.join(work, "synthetic16.tfrecord")
+    make_synthetic_tfrecord(shard, 8, seed=16)
+    for path, n, rc_want in ((os.path.join(here, WOMD_FIXTURE), 3, 1), (shard, 8, 0)):
+        argv = ["--shard", path, "--n", str(n), "--rasterize"]
+        rc, text = captured(validate_waymo.main, argv)
+        rc_cpu, text_cpu = captured(validate_waymo.main, argv + ["--device", "cpu"])
+        check(rc == rc_want and (rc, text) == (rc_cpu, text_cpu),
+              f"validate_waymo on {path}: card rc {rc}, CPU rc {rc_cpu} (want {rc_want}), "
+              f"outputs equal {text == text_cpu}")
+        print(f"validate_waymo --rasterize {os.path.basename(path)}: rc {rc} on the card, "
+              f"output and rc equal to the CPU's")
+    out["phase_s"] = time.perf_counter() - t16
+    print(f"phase 16: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -2695,6 +2990,9 @@ def main() -> int:
     tp_numbers["phase_s"] = time.perf_counter() - t15
     print(f"phase 15: {tp_numbers['phase_s']:.1f} s")
 
+    # --------------------------------------------------------------- 16
+    import_eval_numbers = phase_import_eval(here, work, rows, fwd_graph_ms, dt)
+
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
@@ -2720,6 +3018,7 @@ def main() -> int:
                                   "front_end": front_end_numbers,
                                   "training_at_scale": scale_numbers,
                                   "tensor_parallel": tp_numbers,
+                                  "import_eval": import_eval_numbers,
                                   "script_s": time.perf_counter() - t_main,
                                   "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))

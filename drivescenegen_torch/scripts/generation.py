@@ -7,7 +7,8 @@ drivescenegen_tpu/scripts/generation.py).
 
 <model_dir> holds config.yaml (its model and diffusion sections are spliced
 into the run's config) and params.npz, the flat flax parameter tree
-(models/convert.py). The default steps are ddim_steps for ddim, 20 for dpm
+(models/convert.py); a JAX package's model directory (orbax params/) is
+converted first by tools/params_bridge.py to-npz. The default steps are ddim_steps for ddim, 20 for dpm
 (DPM-Solver++(2M)), 25 for sde (its SDE variant) and num_inference_steps
 for ddpm; the default spacing is trailing for dpm and sde, leading for
 ddim and ddpm. With --cond_dir (a model with cond_channels > 0) batch
@@ -75,8 +76,12 @@ def load_model_for_sampling(cfg, model_dir: str, device, plain: bool = False):
         cfg.diffusion = trained.diffusion
     params_path = os.path.join(model_dir, "params.npz")
     if not os.path.exists(params_path):
-        raise SystemExit(f"no weights at {params_path}: the port reads the flat flax tree "
-                         f"from params.npz (models/convert.py save_npz)")
+        msg = (f"no weights at {params_path}: the port reads the flat flax tree from params.npz "
+               f"(models/convert.py save_npz)")
+        if os.path.isdir(os.path.join(model_dir, "params")):
+            msg += (f"; {model_dir}/params is the JAX package's orbax export: convert it with "
+                    f"python tools/params_bridge.py to-npz --src {model_dir} --dst <dir>")
+        raise SystemExit(msg)
     model = UNet2D(cfg.model, device=device, plain=plain)
     model.load_state_dict(flax_to_torch(load_npz(params_path), cfg.model))
     model.eval()

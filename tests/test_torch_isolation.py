@@ -45,8 +45,19 @@ def test_the_port_has_its_modules():
                      "drivescenegen_torch/scripts/compute_map_metrics.py",
                      "drivescenegen_torch/scripts/run_demo.py",
                      "drivescenegen_torch/parallel/mesh.py",
-                     "drivescenegen_torch/utils/profiling.py"):
+                     "drivescenegen_torch/utils/profiling.py",
+                     "drivescenegen_torch/models/import_diffusers.py",
+                     "drivescenegen_torch/scripts/import_reference.py",
+                     "drivescenegen_torch/utils/flops.py",
+                     "drivescenegen_torch/scripts/eval_cond_agents.py",
+                     "drivescenegen_torch/scripts/validate_waymo.py",
+                     "drivescenegen_torch/scripts/visualize.py",
+                     "drivescenegen_torch/visualization.py"):
         assert required in names
+    # The weights bridge imports orbax and flax: a tool beside the packages,
+    # not a file of the port.
+    assert (ROOT / "tools" / "params_bridge.py").exists()
+    assert not [n for n in names if n.startswith("tools/")]
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
