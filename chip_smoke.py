@@ -10,9 +10,11 @@ Phases, each printed as it runs; any failure exits non-zero:
                ptxas's register/spill report; cuobjdump's SASS of each CUDA
                library must hold what its source states on its line
                "// SASS must hold:" (HGMMA and UTMALDG, wgmma fed by TMA,
-               for the conv and the attention; 16-byte loads and the
-               arrival counter's atomic, LDG.E.128.CONSTANT and ATOMG, for
-               the GroupNorm stats)
+               for the conv and the head-dim-64 attention; 16-byte loads
+               and the arrival counter's atomic, LDG.E.128.CONSTANT and
+               ATOMG, for the GroupNorm stats; the two mma.sync shapes,
+               ldmatrix .trans, cp.async and MUFU.EX2 for the head-dim-8
+               attention)
   3. kernels   every kernel on the sampling path against its plain PyTorch
                version, at every shape the full-width UNet gives it
                (batch 8, 256x256; models/unet2d.py conv3x3_shapes,
@@ -26,7 +28,13 @@ Phases, each printed as it runs; any failure exits non-zero:
                so that it reads device memory and not the cache (its warm
                time printed beside); for the GroupNorm stats also the variance clamp, two
                calls and two CUDA-graph replays bit-identical, and one
-               device kernel per call
+               device kernel per call; the head-dim-8 attention at the
+               shape of DriveSceneGen's own model as the import CLI
+               configures it ([8, 64, 1024, 8], views of a fused qkv) and
+               at ragged shapes, two runs bit-identical, timed beside
+               plain, SDPA (the kernels it ran named) and a bound that
+               also counts the exponentials (16 a clock an SM at the top
+               SM clock nvidia-smi reports), its lse output refused
   4. forward   the full-width UNet2D (default widths, seeded random weights)
                with kernels against the same model with plain versions
   5. sampling  DDIM-50, batch 8, 256x256, eta 0: the launch counts of one
@@ -154,10 +162,17 @@ Phases, each printed as it runs; any failure exits non-zero:
                forward with kernels against plain under phase 4's gate,
                then DDIM-10 at batch 8 through the generation CLI with
                every forward kernel launched; the same weights at
-               diffusers' default head dim 8: the CLI's line names
-               --plain, UNet2D refuses at construction, a --plain DDIM-5
-               writes its PNGs; eval_cond_agents on config-5's model
-               (configs/config5_cond_128n.yaml, random weights) over 16
+               diffusers' default head dim 8, DriveSceneGen's own model:
+               the CLI's line names no --plain, UNet2D builds on the card
+               with the kernels (its training arm refused, naming the
+               backward), its forward against plain under phase 4's gate
+               and as a CUDA graph, DDIM-50 at batch 8 timed as in phase
+               5, then through the generation CLI DDIM-50 and the
+               reference's DDPM-750 at batch 8 with launch counts gated
+               (2200 / 2250 / 50 / 50 and 33000 / 33750 / 750 / 750) and a
+               --plain DDIM-50, scenes/s of each; eval_cond_agents on
+               config-5's model (configs/config5_cond_128n.yaml, random
+               weights) over 16
                GT rasters from the rasterizer on the card, g 1 and 3,
                DDIM-50 at batch 8, launch counts gated, its JSON printed
                (random weights: precision and recall not gated); MFU of
@@ -167,8 +182,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                exits 1 in both, as in the JAX package: its lane lies
                outside the raster; a synthetic shard exits 0)
 
-About 580-700 s on an H100 before phase 15, builds included; phase 14
-about 260-295 s of it; phase 16 about 20 s.
+About 650-750 s on an H100, builds included; phase 14 about 215-295 s
+of it; phase 16 about 35 s.
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -192,6 +207,8 @@ from collections import Counter
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 BATCH, STEPS = 8, 50
+# MUFU.EX2 results a clock an SM (Hopper): the head-dim-8 attention's bound.
+EX2_PER_CLOCK = 16
 # bf16 outputs: at most 4 bf16 ulps (2^-6 relative) of the largest value.
 BF16_TOL = 2.0 ** -6
 # f32 GroupNorm vectors: summation order only.
@@ -267,6 +284,12 @@ def free_port() -> int:
 
 def smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def smi_query(field: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -476,13 +499,31 @@ def run_cli(here: str, args, timeout: int = 600) -> str:
     return run_module(here, "drivescenegen_torch.scripts.train", args, timeout=timeout)
 
 
-def logged_launches(log: str) -> dict:
-    """The launch counts the train CLI logs at its end."""
+def logged_launches(log: str, what: str = "kernel launches") -> dict:
+    """The launch counts the train CLI logs at its end: by wrapper, or with
+    what="attention forward launches by source" the attention forward's by
+    source."""
     import ast
 
-    lines = [ln for ln in log.splitlines() if "kernel launches" in ln]
-    check(len(lines) == 1, f"train CLI logged {len(lines)} launch-count lines")
-    return ast.literal_eval(lines[0].split("kernel launches ", 1)[1])
+    lines = [ln for ln in log.splitlines() if what in ln]
+    check(len(lines) == 1, f"train CLI logged {len(lines)} lines of {what!r}")
+    return ast.literal_eval(lines[0].split(what + " ", 1)[1])
+
+
+def row_launches(counts: dict, by_source: dict, head_dim: int = 64) -> dict:
+    """counts (ops.launch_counts()) keyed by the kernels line's rows: the
+    attention wrapper's one counter split by the source that launched
+    (ops.attention.launches_by_source), "attention" for
+    csrc/flash_attention.cu and "attention_d8" for csrc/flash_attention_d8.cu.
+    Fails unless every attention launch was the kernel of head_dim, the
+    path's."""
+    split = {"attention": by_source["flash_attention"],
+             "attention_d8": by_source["flash_attention_d8"]}
+    ours = "attention_d8" if head_dim == 8 else "attention"
+    want = {k: counts["attention"] if k == ours else 0 for k in split}
+    check(split == want, f"attention forward launches by source {by_source}: a head dim "
+                         f"{head_dim} path's {counts['attention']} should all be its kernel's")
+    return {**counts, **split}
 
 
 class KernelRow:
@@ -507,6 +548,95 @@ class KernelRow:
         if library_ms is not None:
             d["library_ms"] = (d["library_ms"] or 0.0) + count * library_ms
         d["launches_per_forward"] += count
+
+
+def attention_d8_checks(mcfg, B: int, row: KernelRow) -> dict:
+    """Phase 3's head-dim-8 forward (csrc/flash_attention_d8.cu): at the
+    mid-block attention of mcfg (mid_attention_shape) at batch B, its q, k
+    and v views of a fused qkv as the model makes them, then at ragged
+    shapes, each within BF16_TOL x the largest output of its plain version
+    and two runs bit-identical; an lse request refused. The main shape is
+    timed beside plain, SDPA (its backend named by the kernels it ran) and
+    the bound, the largest of bytes / 3.35 TB/s, products / 989 TFLOP/s and
+    exponentials / (EX2_PER_CLOCK x SMs x the SM's top clock). Its numbers
+    go into `row`; returns them."""
+    import torch
+    import torch.nn.functional as F
+
+    from drivescenegen_torch import ops
+    from drivescenegen_torch.models.unet2d import mid_attention_shape
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    heads, S, D = mid_attention_shape(mcfg)
+    sc = 1.0 / math.sqrt(D)
+
+    def fused(Bq, Hq, Sq):
+        return torch.randn(Bq, Sq, 3 * Hq * D, generator=gen, device=dev).bfloat16()
+
+    def split(qkv, Hq):
+        Bq, Sq, _ = qkv.shape
+        return tuple(t.view(Bq, Sq, Hq, D).transpose(1, 2) for t in qkv.split(Hq * D, dim=-1))
+
+    def held(q, k, v, label):
+        got, again = ops.attention(q, k, v, sc), ops.attention(q, k, v, sc)
+        ref = ops.reference_attention(q, k, v, sc)
+        err = (got.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        check(err <= BF16_TOL * ref_max, f"attention {label}: err {err} vs max {ref_max}")
+        check(torch.equal(got, again), f"attention {label}: two runs differ")
+        print(f"attention     {label}: err {err:.3g} (max {ref_max:.3g}, tol "
+              f"{BF16_TOL * ref_max:.3g}); two runs bit-identical")
+        return err, ref_max
+
+    qkv = fused(B, heads, S)
+    err, ref_max = held(*split(qkv, heads), f"[{B},{heads},{S},{D}] (the imported model's, views "
+                                            f"of a fused qkv)")
+    flops = 4 * B * heads * S * S * D
+    nbytes = 4 * B * heads * S * D * 2
+    exps = B * heads * S * S
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(smi_query("clocks.max.sm"))
+    terms = {"bytes": nbytes / PEAK_BYTES * 1e3, "products": flops / PEAK_BF16_FLOPS * 1e3,
+             "exponentials": exps / (EX2_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3}
+    by = max(terms, key=terms.get)
+    bnd = (terms[by], "bytes" if by == "bytes" else "operations")
+    ms, _ = time_cold_ms(lambda a: ops.attention(*split(a, heads), sc), (qkv,), bnd, nbytes)
+    plain, _ = time_cold_ms(lambda a: ops.reference_attention(*split(a, heads), sc), (qkv,), bnd,
+                            nbytes)
+    lib, _ = time_cold_ms(lambda a: F.scaled_dot_product_attention(*split(a, heads), scale=sc),
+                          (qkv,), bnd, nbytes)
+    q, k, v = split(qkv, heads)
+    sdpa = sorted({r[0] for r in device_kernels(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=sc)) if "emset" not in r[0]})
+    row.add(1, err, ref_max, ms, plain, bnd, lib)
+    print(f"attention     [{B},{heads},{S},{D}]: {ms:.4f} ms ({exps / ms / 1e9:.1f} G exp/s, "
+          f"{100 * bnd[0] / ms:.1f}% of the bound), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+          f"(ran {sdpa or 'not measured'}), bound {bnd[0]:.4f} ms ({by}: {exps / 1e6:.1f} M at "
+          f"{EX2_PER_CLOCK} a clock x {sms} SMs x {clock_mhz:.0f} MHz; products "
+          f"{terms['products']:.4f}, bytes {terms['bytes']:.4f} ms)  x1")
+    del qkv, q, k, v
+
+    # Ragged shapes: one head, odd head and batch counts, S = 128 and 256;
+    # views of a fused qkv at S = 256; slices of [B, heads, S, 2D] buffers,
+    # whose head stride is larger than their token stride.
+    for Bq, Hq, Sq in ((1, 1, 128), (3, 5, 256)):
+        q, k, v = (torch.randn(Bq, Hq, Sq, D, generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        held(q, k, v, f"[{Bq},{Hq},{Sq},{D}] (ragged)")
+    held(*split(fused(2, heads, 256), heads), f"[2,{heads},256,{D}] (ragged, fused qkv views)")
+    wide = [torch.randn(3, 5, 384, 2 * D, generator=gen, device=dev).bfloat16() for _ in range(3)]
+    q, k, v = (t[..., D:] for t in wide)
+    held(q, k, v, f"[3,5,384,{D}] (ragged) strides {tuple(q.stride())}")
+    try:
+        ops.attention_with_lse(q, k, v, sc)
+    except ValueError as e:
+        print(f"attention_with_lse at head dim {D} refused: {e}")
+    else:
+        raise SmokeFailure(f"attention_with_lse ran at head dim {D}: that kernel writes no lse")
+    return dict(ms=ms, plain_ms=plain, sdpa_ms=lib, sdpa_kernels=sdpa, bound_ms=bnd[0],
+                bound_terms_ms=terms, clock_mhz=clock_mhz, sms=sms, max_abs_err=err,
+                shape=[B, heads, S, D])
 
 
 def stage2_constructions(res: int):
@@ -1284,9 +1414,10 @@ def phase_scale(here: str, work: str, model_dir: str, gen6_dir: str, train7_run:
     check(all(launched[k] == SCALE_STEPS for k in
               ("attention_bwd_prep", "attention_bwd_main", "attention_bwd_dq"))
           and launched["attention"] >= SCALE_STEPS, f"torchrun train CLI launches {launched}")
+    per_row = row_launches(launched, logged_launches(log, "attention forward launches by source"))
     for name, row in rows.items():
         row.d["launches_by_path"][f"phase 14 torchrun train CLI, hybrid ({SCALE_STEPS} steps and "
-                                  f"a DDIM-10 eval sample)"] = launched[name]
+                                  f"a DDIM-10 eval sample)"] = per_row[name]
     traces = [os.path.join(sc, "run", "trace", f) for f in
               os.listdir(os.path.join(sc, "run", "trace"))]
     check(len(traces) == 1, f"--profile_steps wrote {traces}")
@@ -1432,6 +1563,7 @@ def tp_worker(workdir: str) -> int:
         state, m = step(state, batch, inp["noise"], inp["t"])
         torch.cuda.synchronize()
         out["launches_step1"] = ops.launch_counts()
+        out["attention_by_source_step1"] = dict(ops.attention.launches_by_source)
         out["step1"] = (m["loss"].item(), m["grad_norm"].item())
         tensors["grads1"] = gathered_grads()
         state, m = step(state, batch)
@@ -1601,9 +1733,12 @@ def phase_tp_train(here: str, work: str, inputs7: str) -> dict:
 
 # Phase 16: the last modules on the card. A reference diffusers checkpoint
 # at the default widths (random weights from a seed) imported at head dim 64
-# and at diffusers' default of 8; config-5's agent evaluation; the port's
-# FLOP count against this run's forward and DDIM-50; the Waymo validator.
-IMPORT_STEPS, IMPORT_PLAIN_STEPS, EVAL_RASTERS, EVAL_STEPS = 10, 5, 16, 50
+# and at diffusers' default of 8, DriveSceneGen's own model, which samples
+# by DDIM-50 and by the reference's 750-step ancestral DDPM
+# (generation.py:5,17 of the reference); config-5's agent evaluation; the
+# port's FLOP count against this run's forward and DDIM-50; the Waymo
+# validator.
+IMPORT_STEPS, EVAL_RASTERS, EVAL_STEPS, DDPM_STEPS = 10, 16, 50, 750
 CONFIG5_YAML = os.path.join("drivescenegen_tpu", "configs", "config5_cond_128n.yaml")
 WOMD_FIXTURE = os.path.join("tests", "fixtures", "womd_mini.tfrecord")
 DIFFUSERS_NAMES = (  # the port's module paths -> diffusers UNet2DModel's
@@ -1642,6 +1777,23 @@ def diffusers_state_dict(state_dict) -> dict:
     return out
 
 
+def diffusers_config_json(cfg, head_dim=None) -> dict:
+    """config.json of a diffusers UNet2DModel at cfg's widths, as the
+    reference saves it; with head_dim None it names no attention_head_dim,
+    as the reference's does, so diffusers' default of 8 applies."""
+    out = {"_class_name": "UNet2DModel", "sample_size": cfg.sample_size,
+           "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
+           "layers_per_block": cfg.layers_per_block,
+           "block_out_channels": list(cfg.block_out_channels),
+           "norm_num_groups": cfg.norm_num_groups,
+           "down_block_types": ["DownBlock2D"] * len(cfg.block_out_channels),
+           "up_block_types": ["UpBlock2D"] * len(cfg.block_out_channels),
+           "flip_sin_to_cos": True, "freq_shift": 0}
+    if head_dim is not None:
+        out["attention_head_dim"] = head_dim
+    return out
+
+
 def captured(fn, *args):
     """(fn(*args), its stdout), the stdout printed as well; a SystemExit's
     code is returned as the result."""
@@ -1660,9 +1812,10 @@ def captured(fn, *args):
 
 def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
                       ddim_seconds: float) -> dict:
-    """Phase 16: the diffusers import at head dim 64 and 8, eval_cond_agents
-    on config-5, the FLOP count's MFU and roofline, validate_waymo on the
-    card. Returns its numbers for the summary."""
+    """Phase 16: the diffusers import at head dim 64 and 8 (the head-dim-8
+    model sampled by DDIM-50 and DDPM-750 with the kernels, the main path of
+    rows["attention_d8"]), eval_cond_agents on config-5, the FLOP count's MFU and roofline,
+    validate_waymo on the card. Returns its numbers for the summary."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1673,14 +1826,16 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
     from drivescenegen_torch.data.synthetic import make_synthetic_scenario, make_synthetic_tfrecord
     from drivescenegen_torch.models import UNet2D
     from drivescenegen_torch.models.convert import flax_to_torch, load_npz, save_npz, torch_to_flax
-    from drivescenegen_torch.models.unet2d import kernel_limit_errors
+    from drivescenegen_torch.diffusion import ddim_sample, make_schedule
+    from drivescenegen_torch.models.unet2d import kernel_limit_errors, mid_attention_shape
     from drivescenegen_torch.ops.raster import rasterize_scenario
     from drivescenegen_torch.scripts import (eval_cond_agents, generation, import_reference,
                                              validate_waymo)
     from drivescenegen_torch.utils import flops
 
     phase(f"16 the diffusers import (head dim 64: DDIM-{IMPORT_STEPS} with the kernels; head dim "
-          f"8: refused, --plain), config-5's eval_cond_agents, MFU and roofline, validate_waymo")
+          f"8: DDIM-{STEPS} and DDPM-{DDPM_STEPS} with the kernels, DDIM-{STEPS} --plain), "
+          f"config-5's eval_cond_agents, MFU and roofline, validate_waymo")
     t16 = time.perf_counter()
     dev = torch.device("cuda")
     per_forward = {"silu_conv3x3": 44, "gn_mul_add": 45, "silu_affine": 1, "attention": 1}
@@ -1699,15 +1854,8 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
     ckpt = os.path.join(work, "diffusers", "unet")
     os.makedirs(ckpt)
     torch.save(diffusers_state_dict(want), os.path.join(ckpt, "diffusion_pytorch_model.bin"))
-    cfgj = {"_class_name": "UNet2DModel", "sample_size": cfg.sample_size,
-            "in_channels": cfg.in_channels, "out_channels": cfg.out_channels,
-            "layers_per_block": cfg.layers_per_block,
-            "block_out_channels": list(cfg.block_out_channels),
-            "norm_num_groups": cfg.norm_num_groups, "attention_head_dim": 64,
-            "down_block_types": ["DownBlock2D"] * 4, "up_block_types": ["UpBlock2D"] * 4,
-            "flip_sin_to_cos": True, "freq_shift": 0}
     with open(os.path.join(ckpt, "config.json"), "w") as f:
-        json.dump(cfgj, f)
+        json.dump(diffusers_config_json(cfg, head_dim=64), f)
     del src
     t0 = time.perf_counter()
     imported = os.path.join(work, "imported64")
@@ -1748,6 +1896,7 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
                             "--steps", str(IMPORT_STEPS), "--batch_size", str(BATCH),
                             "--num_batches", "1", "--device", "cuda"])
     counts = ops.launch_counts()
+    per_row = row_launches(counts, ops.attention.launches_by_source)
     pngs = sorted(os.listdir(gen_dir))
     name = f"phase 16a generation CLI, imported model, DDIM-{IMPORT_STEPS} batch {BATCH}"
     want_counts = {k: per_forward.get(k, 0) * IMPORT_STEPS for k in counts}
@@ -1755,48 +1904,113 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
     check(pngs == [f"loop_000_batch_{i:03d}.png" for i in range(BATCH)], f"{name} wrote {pngs}")
     check(counts == want_counts, f"{name} launches {counts} != {want_counts}")
     for k, row in rows.items():
-        row.d["launches_by_path"][name] = counts[k]
+        row.d["launches_by_path"][name] = per_row[k]
     out["generation_scenes_per_s"] = rate
 
     # 16b: the same weights with no attention_head_dim in config.json:
-    # diffusers' default of 8, outside the attention kernel's D = 64.
+    # diffusers' default of 8, DriveSceneGen's own architecture (64 heads of
+    # 8 over 1024 tokens). The import closes without --plain; UNet2D builds
+    # on CUDA with the kernels (the training arm stays refused: the
+    # backward takes head dim 64 only); its forward against plain; DDIM-50
+    # timed as phase 5 times it; then DDIM-50 and DDPM-750 through the
+    # generation CLI, each launch counted, and a --plain DDIM-50 beside.
     ckpt8 = os.path.join(work, "diffusers8", "unet")
     os.makedirs(ckpt8)
     os.symlink(os.path.join(ckpt, "diffusion_pytorch_model.bin"),
                os.path.join(ckpt8, "diffusion_pytorch_model.bin"))
-    del cfgj["attention_head_dim"]
     with open(os.path.join(ckpt8, "config.json"), "w") as f:
-        json.dump(cfgj, f)
+        json.dump(diffusers_config_json(cfg), f)
     imported8 = os.path.join(work, "imported8")
     _, log = captured(import_reference.main, ["--src", ckpt8, "--dst", imported8])
     icfg8 = load_config(os.path.join(imported8, "config.yaml")).model
-    limits = kernel_limit_errors(icfg8)
+    shape8 = mid_attention_shape(icfg8)
     last = log.strip().splitlines()[-1]
-    check(icfg8.attention_head_dim == 8 and limits and last.endswith(" --plain")
-          and all(f"outside the CUDA kernels' limits: {why}" in log for why in limits),
-          f"import CLI at head dim 8: limits {limits}, closing line {last!r}")
+    check(icfg8.attention_head_dim == 8 and icfg8.torch_pad_downsample
+          and kernel_limit_errors(icfg8) == [] and shape8[2] == 8
+          and last == "sample with: python -m drivescenegen_torch.scripts.generation "
+          f"--model_dir {imported8}", f"import CLI at head dim 8: limits "
+          f"{kernel_limit_errors(icfg8)}, attention {shape8}, closing line {last!r}")
+    training_limits = kernel_limit_errors(icfg8, for_training=True)
     try:
-        UNet2D(icfg8, device=dev)
+        UNet2D(icfg8, device=dev, for_training=True)
     except ValueError as e:
-        check("plain=True" in str(e) and all(why in str(e) for why in limits),
-              f"head dim 8 refused without naming its limits: {e}")
-        print("UNet2D at head dim 8 on CUDA refused at construction: "
+        check(training_limits and all(why in str(e) for why in training_limits)
+              and "attention backward" in str(e), f"head dim 8 training arm refused: {e}")
+        print("training arm at head dim 8 on CUDA refused at construction: "
               + str(e).replace("\n", " | "))
     else:
-        raise SmokeFailure("UNet2D at head dim 8 built on CUDA with the kernels")
-    gen8 = os.path.join(work, "gen16b")
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    generation.main(["--model_dir", imported8, "--output_dir", gen8, "--sampler", "ddim",
-                     "--steps", str(IMPORT_PLAIN_STEPS), "--batch_size", "2", "--num_batches",
-                     "1", "--device", "cuda", "--plain"])
-    out["plain_head_dim8_s"] = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    pngs = sorted(os.listdir(gen8))
-    print(f"generation CLI --plain, head dim 8, DDIM-{IMPORT_PLAIN_STEPS} batch 2: {pngs} in "
-          f"{out['plain_head_dim8_s']:.1f} s; launches {counts}")
-    check(pngs == ["loop_000_batch_000.png", "loop_000_batch_001.png"]
-          and set(counts.values()) == {0}, f"--plain at head dim 8 wrote {pngs}, launched {counts}")
+        raise SmokeFailure("UNet2D(head dim 8, for_training=True) built on CUDA")
+    model, _ = generation.load_model_for_sampling(load_config(), imported8, dev)
+    plain = UNet2D(icfg8, device=dev, plain=True).eval()
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        eps_k, eps_p = model(xin, tin), plain(xin, tin)
+        err = (eps_k - eps_p).abs().max().item()
+        ref_max = eps_p.abs().max().item()
+        tol = FORWARD_TOL * max(1.0, ref_max)
+        check(bool(torch.isfinite(eps_k).all()) and err <= tol,
+              f"imported forward at head dim 8: kernel and plain eps differ by {err} > {tol}")
+        graph8_ms = time_ms(lambda: model(xin, tin), 100.0)
+    print(f"import CLI (head dim 8): closes without --plain; attention {list(shape8)} a sample; "
+          f"UNet2D built on CUDA with the kernels; forward, batch {BATCH}: kernels against "
+          f"plain max abs err {err:.4g} (max |eps| {ref_max:.3g}, tol {tol:.3g}); as a CUDA "
+          f"graph {graph8_ms:.3f} ms against the native model's {fwd_graph_ms:.3f} ms (phase 4)")
+    del plain, eps_k, eps_p
+    schedule = make_schedule(device=dev)
+    ddim8_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            sample = ddim_sample(model, schedule, (BATCH, cfg.sample_size, cfg.sample_size, 3),
+                                 torch.Generator(device=dev).manual_seed(7), STEPS, eta=0.0)
+        torch.cuda.synchronize()
+        ddim8_s.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(sample).all()) and -1.0 <= sample.min().item()
+          and sample.max().item() <= 1.0, "DDIM-50 of the head-dim-8 model: not finite in [-1, 1]")
+    ddim8_med = sorted(ddim8_s)[1]
+    print(f"DDIM-{STEPS}, head dim 8, batch {BATCH}: {', '.join(f'{t:.3f}' for t in ddim8_s)} s; "
+          f"median {BATCH / ddim8_med:.4f} scenes/s against the native model's "
+          f"{BATCH / ddim_seconds:.4f} (phase 5's median); device-only forwards "
+          f"{STEPS * graph8_ms / 1e3:.3f} s, so the device idles "
+          f"{100 * (1 - STEPS * graph8_ms / 1e3 / ddim8_med):.1f}%")
+    out.update(head_dim8=dict(forward_max_abs_err=err, forward_max_abs_eps=ref_max,
+                              forward_tol=tol, forward_graph_ms=graph8_ms,
+                              ddim_seconds_runs=ddim8_s, ddim_scenes_per_s=BATCH / ddim8_med))
+    del model, sample
+    torch.cuda.empty_cache()
+    for sampler, steps, plain_arg in (("ddim", STEPS, []), ("ddpm", DDPM_STEPS, []),
+                                      ("ddim", STEPS, ["--plain"])):
+        gen_dir = os.path.join(work, f"gen16b_{sampler}{steps}{'_plain' if plain_arg else ''}")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rate = generation.main(["--model_dir", imported8, "--output_dir", gen_dir, "--sampler",
+                                sampler, "--steps", str(steps), "--batch_size", str(BATCH),
+                                "--num_batches", "1", "--device", "cuda", *plain_arg])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        per_row = row_launches(counts, ops.attention.launches_by_source, head_dim=8)
+        pngs = sorted(os.listdir(gen_dir))
+        name = (f"phase 16b generation CLI, imported model at head dim 8, "
+                f"{sampler.upper()}-{steps}{' --plain' if plain_arg else ''} batch {BATCH}")
+        want_counts = {k: (0 if plain_arg else per_forward.get(k, 0) * steps) for k in counts}
+        print(f"{name}: {len(pngs)} PNGs at {rate:.4f} scenes/s ({wall:.1f} s with the model "
+              f"load); launches {counts}")
+        check(pngs == [f"loop_000_batch_{i:03d}.png" for i in range(BATCH)], f"{name} wrote {pngs}")
+        check(counts == want_counts, f"{name} launches {counts} != {want_counts}")
+        if not plain_arg:
+            for k, row in rows.items():
+                row.d["launches_by_path"][name] = per_row[k]
+        if sampler == "ddim" and not plain_arg:  # the D = 8 kernel's main path
+            rows["attention_d8"].d["launches"] = per_row["attention_d8"]
+        out["head_dim8"][f"cli_{sampler}{steps}{'_plain' if plain_arg else ''}"] = dict(
+            scenes_per_s=rate, wall_s=wall, launches=counts)
+    ddim_r, ddpm_r, plain_r = (out["head_dim8"][f"cli_{key}"]["scenes_per_s"] for key in
+                               (f"ddim{STEPS}", f"ddpm{DDPM_STEPS}", f"ddim{STEPS}_plain"))
+    print(f"head dim 8 through the CLI, batch {BATCH}: DDIM-{STEPS} {ddim_r:.4f} scenes/s, "
+          f"DDPM-{DDPM_STEPS} {ddpm_r:.4f} ({ddim_r / ddpm_r:.2f}x the DDIM-{STEPS} time), "
+          f"DDIM-{STEPS} --plain {plain_r:.4f} ({ddim_r / plain_r:.2f}x slower than with the "
+          f"kernels)")
 
     # 16c: config-5's eval_cond_agents, random weights: precision and
     # recall are printed, not gated.
@@ -1822,6 +2036,7 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
         "--steps", str(EVAL_STEPS), "--batch_size", str(BATCH), "--device", "cuda"])
     eval_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    per_row = row_launches(counts, ops.attention.launches_by_source)
     check(isinstance(result, dict), f"eval_cond_agents exited {result}")
     n_fwd = 2 * EVAL_STEPS * -(-EVAL_RASTERS // BATCH)  # one forward a step a batch, per g
     name = (f"phase 16c eval_cond_agents, config-5, {EVAL_RASTERS} rasters, g 1,3, "
@@ -1834,7 +2049,7 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
                                                 result["results"].values() for v in r.values()),
           f"eval_cond_agents JSON {result}")
     for k, row in rows.items():
-        row.d["launches_by_path"][name] = counts[k]
+        row.d["launches_by_path"][name] = per_row[k]
     out["eval_cond_agents"] = dict(result, seconds=eval_s)
 
     # 16d: the port's FLOP count against this run's forward (phase 4, a CUDA
@@ -1892,6 +2107,7 @@ def main() -> int:
                                                    dpmpp_2m_sde_sample, make_guided_denoise,
                                                    make_schedule)
         from drivescenegen_torch.models import UNet2D
+        from drivescenegen_torch.models import import_diffusers
         from drivescenegen_torch.models.unet2d import (conv3x3_shapes, gn_mul_add_shapes,
                                                        kernel_limit_errors, mid_attention_shape)
         from drivescenegen_torch.models.convert import save_npz, torch_to_flax
@@ -2205,6 +2421,25 @@ def main() -> int:
         print(f"attention     {label} (ragged): err {err:.3g} (max {ref_max:.3g})")
     del qkv, wide, views, q, k, v, got, ref
 
+    # The head-dim-8 forward at the shape of DriveSceneGen's own model, as
+    # the import CLI configures it from a config.json that names no
+    # attention_head_dim (diffusers' default 8): 64 heads over 1024 tokens.
+    # load_model_config reads config.json only; the empty weights file makes
+    # the directory a checkpoint's.
+    cfg_dir = tempfile.mkdtemp(prefix="chip_smoke_cfg_")
+    atexit.register(shutil.rmtree, cfg_dir, True)
+    with open(os.path.join(cfg_dir, "config.json"), "w") as f:
+        json.dump(diffusers_config_json(cfg), f)
+    open(os.path.join(cfg_dir, "diffusion_pytorch_model.bin"), "wb").close()
+    icfg8, _ = import_diffusers.load_model_config(cfg_dir)
+    check(mid_attention_shape(icfg8) == (64, 1024, 8) and kernel_limit_errors(icfg8) == [],
+          f"the imported reference model: attention {mid_attention_shape(icfg8)}, limits "
+          f"{kernel_limit_errors(icfg8)}")
+    rows["attention_d8"] = KernelRow("attention_d8", "cuda",
+                                     "drivescenegen_torch/csrc/flash_attention_d8.cu",
+                       "drivescenegen_tpu/models/unet2d.py:316")
+    d8_numbers = attention_d8_checks(icfg8, B, rows["attention_d8"])
+
     # ---------------------------------------------------------------- 4
     phase("4 full-width UNet2D forward, kernels against plain versions")
     model = UNet2D(cfg, device=dev, generator=gen).eval()
@@ -2254,6 +2489,7 @@ def main() -> int:
     ops.reset_launch_counts()
     sample, dt = run_ddim()
     counts = ops.launch_counts()
+    ddim_counts = row_launches(counts, ops.attention.launches_by_source)
     print(f"DDIM-{STEPS}: {dt:.3f} s, {B / dt:.4f} scenes/s; launches {counts}")
     want = {"silu_conv3x3": 44 * STEPS, "gn_mul_add": 45 * STEPS, "silu_affine": STEPS,
             "attention": STEPS, "attention_bwd_prep": 0, "attention_bwd_main": 0,
@@ -2273,8 +2509,7 @@ def main() -> int:
     check(-1.0 <= lo and hi <= 1.0, f"DDIM output outside [-1, 1]: [{lo}, {hi}]")
     print(f"DDIM output: finite, in [{lo:.3f}, {hi:.3f}]")
     for name, row in rows.items():
-        row.d["launches"] = counts[name]
-    ddim_counts = counts
+        row.d["launches"] = ddim_counts[name]
     ddim_rate = B / dt
     q_ddim = stage2.quantize(sample)  # phase 12's device pass reads it
     del sample
@@ -2586,6 +2821,7 @@ def main() -> int:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         train_counts = ops.launch_counts()
+        per_row = row_launches(train_counts, ops.attention.launches_by_source)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = {name: n * TRAIN_STEPS for name, n in want1.items()}
         print(f"{label}: {TRAIN_STEPS} train steps: launches {train_counts}")
@@ -2600,7 +2836,7 @@ def main() -> int:
               f"peak memory {peak_gb:.2f} GB (torch.cuda.max_memory_allocated)")
         del kstate, kstep
         torch.cuda.empty_cache()
-        return dict(med_ms=med_ms, step_ms=step_ms, counts=train_counts, idle=idle, peak_gb=peak_gb,
+        return dict(med_ms=med_ms, step_ms=step_ms, counts=per_row, idle=idle, peak_gb=peak_gb,
                     samples_per_s=TB / med_ms * 1e3)
 
     # 7b: one full-width train step with kernels against one with plain
@@ -2705,6 +2941,7 @@ def main() -> int:
         ops.reset_launch_counts()
         out, dt0 = timed_sample(fn, model, shape, n)
         counts = ops.launch_counts()
+        per_row = row_launches(counts, ops.attention.launches_by_source)
         want = {k: per_forward.get(k, 0) * n for k in counts}
         print(f"{name}: {dt0:.3f} s; launches {counts}")
         check(counts == want, f"{name} launch counts {counts} != {want}")
@@ -2724,7 +2961,7 @@ def main() -> int:
                        plain_bf16_vs_f32=d_pf, kernels_vs_plain_f32=d_kf)
         if fn is not ddim_sample:  # DDIM-50's launches and scenes/s are phase 5's
             for k, row in rows.items():
-                row.d["launches_by_path"][name] = counts[k]
+                row.d["launches_by_path"][name] = per_row[k]
             runs = [dt0] + [timed_sample(fn, model, shape, n)[1] for _ in range(2)]
             med = sorted(runs)[1]
             run_idle = 1 - n * fwd_graph_ms / 1e3 / med
@@ -2791,6 +3028,7 @@ def main() -> int:
         ops.reset_launch_counts()
         out, dt0 = timed_sample(ddim_sample, make_guided_denoise(spy, cond5, g), shape5, STEPS)
         counts = ops.launch_counts()
+        per_row = row_launches(counts, ops.attention.launches_by_source)
         fb = GB5 if g == 1.0 else 2 * GB5
         want = {k: per_forward.get(k, 0) * STEPS for k in counts}
         name = f"config-5 guided DDIM-{STEPS}, g={g:g}"
@@ -2799,7 +3037,7 @@ def main() -> int:
         check(batches == [fb] * STEPS, f"{name}: forward batches {Counter(batches)}, want {fb} x "
                                        f"{STEPS}")
         for k, row in rows.items():
-            row.d["launches_by_path"][name] = counts[k]
+            row.d["launches_by_path"][name] = per_row[k]
         check(bool(torch.isfinite(out).all()) and out.abs().max().item() <= 1.0,
               f"{name} output not finite or outside [-1, 1]")
         runs = [dt0]
@@ -2984,9 +3222,11 @@ def main() -> int:
         del a15, t15a
         torch.cuda.empty_cache()
     tp_numbers = phase_tp_train(here, work, inputs7)
+    rank0 = tp_numbers["ranks"][0]
+    per_row = row_launches(rank0["launches_step1"], rank0["attention_by_source_step1"])
     for name, row in rows.items():
         row.d["launches_by_path"][f"phase 15 TP train step, model {TP_MODEL}, batch {TB}, "
-                                  f"each rank (x1)"] = tp_numbers["ranks"][0]["launches_step1"][name]
+                                  f"each rank (x1)"] = per_row[name]
     tp_numbers["phase_s"] = time.perf_counter() - t15
     print(f"phase 15: {tp_numbers['phase_s']:.1f} s")
 
@@ -3019,6 +3259,7 @@ def main() -> int:
                                   "training_at_scale": scale_numbers,
                                   "tensor_parallel": tp_numbers,
                                   "import_eval": import_eval_numbers,
+                                  "attention_d8": d8_numbers,
                                   "script_s": time.perf_counter() - t_main,
                                   "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))

@@ -44,6 +44,7 @@ KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention, attention_b
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+    attention.launches_by_source = dict.fromkeys(attention.launches_by_source, 0)
 
 
 def launch_counts() -> dict:

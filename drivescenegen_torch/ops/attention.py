@@ -10,10 +10,14 @@ plain forward is the impl="xla" branch (:319-328): logits accumulated in
 f32, softmax in f32, weights cast to the input dtype before the product
 with V.
 
-The forward kernel (csrc/flash_attention.cu) keeps the logits in registers
-with an online softmax and streams K and V by TMA into wgmma; with an lse
-buffer it also stores each row's log-sum-exp, the residual the backward
-needs (the library saves l and m, flash_attention.py:248-251). The
+The forward has one kernel for each head dim it takes. At D = 64
+(csrc/flash_attention.cu) it keeps the logits in registers with an online
+softmax and streams K and V by TMA into wgmma; with an lse buffer it also
+stores each row's log-sum-exp, the residual the backward needs (the
+library saves l and m, flash_attention.py:248-251). At D = 8, diffusers'
+default head dim that an imported reference model keeps
+(csrc/flash_attention_d8.cu), the exponentials bound it and it runs
+mma.sync on K and V rows copied by cp.async; it has no lse output. The
 backward (csrc/flash_attention_bwd.cu) is three launches: a pre-pass for
 di = rowsum(o * dO) (the library's jnp step, :273); one pass over
 (128-key tile, head, batch) items that recomputes P from q, k and lse,
@@ -22,14 +26,17 @@ f32 accumulator in a fixed order, so the result is deterministic; and a
 dQ pass that scales the accumulator into dq.
 
 `attention` runs the plain version on a CPU tensor and launches the kernel
-on a CUDA tensor, or raises. When grad mode is on and an input requires
-grad it goes through `AttentionFunction`, whose backward is
-`attention_bwd`. Each wrapper counts its launches in `<wrapper>.launches`.
+of q's head dim on a CUDA tensor, or raises. When grad mode is on and an
+input requires grad it goes through `AttentionFunction`, whose backward is
+`attention_bwd`. Each wrapper counts its launches in `<wrapper>.launches`;
+`attention.launches` counts the forward kernels of every head dim, and
+`attention.launches_by_source` each kernel's own, by source.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -128,13 +135,25 @@ def reference_attention_bwd_dq(acc, scale: float):
     return (dq_from_fragment_order(acc) * scale).to(torch.bfloat16)
 
 
+# The forward kernels' sources, one for each head dim.
+_FORWARD_SOURCES = ("flash_attention", "flash_attention_d8")
+
+
+@functools.cache
+def forward_kernels() -> dict:
+    """{head dim: (source, S multiple)} of the forward kernels, read from
+    their sources' constexpr lines (build.source_int)."""
+    return {build.source_int(name, "D"): (name, build.source_int(name, "S_MULTIPLE"))
+            for name in _FORWARD_SOURCES}
+
+
 def attention_shape_error(S: int, D: int):
-    """Why the CUDA forward kernel cannot take sequence length S and head
-    dim D, or None if it can. The limits are read from csrc/flash_attention.cu."""
-    head_dim = build.source_int("flash_attention", "D")
-    s_multiple = build.source_int("flash_attention", "S_MULTIPLE")
-    if D != head_dim or S % s_multiple:
-        return f"the kernel takes head_dim {head_dim} and S % {s_multiple} == 0, got D={D}, S={S}"
+    """Why no CUDA forward kernel can take sequence length S and head dim
+    D, or None if one can. The limits are read from the kernels' sources."""
+    kernels = forward_kernels()
+    if D not in kernels or S % kernels[D][1]:
+        takes = " or ".join(f"head_dim {d} with S % {m} == 0" for d, (_, m) in kernels.items())
+        return f"the kernels take {takes}, got D={D}, S={S}"
     return None
 
 
@@ -191,7 +210,11 @@ def _attention_kernel(q, k, v, scale: float, with_lse: bool):
     why = attention_shape_error(S, D)
     if why:
         raise ValueError(f"attention: {why}")
-    fn = _entry("flash_attention", "dsg_flash_attention", 5, 12)
+    name = forward_kernels()[D][0]
+    if with_lse and D != (bwd_d := build.source_int("flash_attention_bwd", "D")):
+        raise ValueError(f"attention_with_lse: the head_dim {D} kernel writes no lse; the "
+                         f"backward kernels take head_dim {bwd_d}")
+    fn = _entry(name, f"dsg_{name}", 5, 12)
     out = _heads_view(B, S, Hh, D, q.device)
     lse = torch.empty((B, Hh, S), device=q.device, dtype=torch.float32) if with_lse else None
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -199,6 +222,7 @@ def _attention_kernel(q, k, v, scale: float, with_lse: bool):
                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                    float(scale), _stream(q)), "attention")
     attention.launches += 1
+    attention.launches_by_source[name] += 1
     return out, lse
 
 
@@ -235,9 +259,10 @@ class AttentionFunction(torch.autograd.Function):
 def attention(q, k, v, scale: float):
     """Non-causal softmax(q k^T * scale) v. q, k, v: [B, heads, S, D], any
     strides with a contiguous last dim (views into a fused qkv projection
-    are fine). The CUDA kernel takes bf16 at the shapes attention_shape_error
-    allows, and returns a [B, heads, S, D] view of a [B, S, heads, D]
-    buffer, so that merging the heads afterwards is free. Differentiable
+    are fine). The CUDA kernels take bf16 at the shapes attention_shape_error
+    allows (one kernel a head dim, one launch counter for both), and return
+    a [B, heads, S, D] view of a [B, S, heads, D] buffer, so that merging
+    the heads afterwards is free. Differentiable
     (AttentionFunction) when grad mode is on and an input requires grad."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return AttentionFunction.apply(q, k, v, scale)
@@ -247,6 +272,7 @@ def attention(q, k, v, scale: float):
 
 
 attention.launches = 0
+attention.launches_by_source = dict.fromkeys(_FORWARD_SOURCES, 0)
 
 
 def attention_bwd(q, k, v, o, lse, do, scale: float):

@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("gn_silu_conv", "group_norm", "flash_attention", "flash_attention_bwd")
+SOURCES = ("gn_silu_conv", "group_norm", "flash_attention", "flash_attention_d8",
+           "flash_attention_bwd")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

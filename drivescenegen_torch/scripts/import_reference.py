@@ -15,9 +15,11 @@ tree of models/convert.py), after which the port's CLIs read it unchanged:
       --model_dir ./outputs/imported_reference [--plain] ...
 
 The imported config pins torch_pad_downsample=True and the diffusers
-attention_head_dim. The closing "sample with:" line adds --plain when the
-model is outside the CUDA kernels' limits (models/unet2d.py
-kernel_limit_errors), as the reference's default head dim of 8 is.
+attention_head_dim (8 when config.json names none, as the reference's
+does). The closing "sample with:" line adds --plain when the model is
+outside the CUDA kernels' limits (models/unet2d.py kernel_limit_errors),
+as narrower widths than the reference's are; the reference's own
+architecture (widths 64/128/256/512, head dim 8) runs every kernel.
 Host work only: nothing runs on a device.
 """
 

@@ -454,6 +454,7 @@ def main(argv=None):
     dt = time.perf_counter() - t_start
     logger.info(f"trained {state.step - start_step} steps in {dt:.1f}s; kernel launches "
                 f"{ops.launch_counts()}")
+    logger.info(f"attention forward launches by source {ops.attention.launches_by_source}")
     if mesh.is_main:
         writer.close()
     mesh.close()

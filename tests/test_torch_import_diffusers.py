@@ -122,16 +122,26 @@ def test_missing_safetensors_names_the_bin_route(tmp_path, monkeypatch):
         import_diffusers.load_state_dict(str(d))
 
 
-@pytest.mark.parametrize("case", ["head_dim_4", "no_head_dim", "within_limits"])
+@pytest.mark.parametrize("case", ["head_dim_4", "no_head_dim", "within_limits",
+                                  "reference_widths"])
 def test_cli_writes_a_model_dir_and_names_plain(replica, tmp_path, capsys, monkeypatch, case):
     """The CLI writes config.yaml and params.npz equal to the import and
     prints the parameter count; its closing line adds --plain exactly when
-    kernel_limit_errors names a breach: here at head dim 4 and at the
-    default of 8 (no attention_head_dim in config.json), both outside the
-    attention kernel's D = 64, and not when the limits hold (stubbed: these
-    narrow widths break the conv's limits too)."""
-    src = _write_checkpoint(tmp_path, replica, head_dim=4)
-    if case == "no_head_dim":
+    kernel_limit_errors names a breach: at head dim 4, outside both
+    attention kernels (D = 64 and 8), and at the default of 8 (no
+    attention_head_dim in config.json), where these narrow widths break
+    the conv's limits and the 16x16 sample leaves the attention 64 tokens,
+    not a multiple of 128; not when the limits hold, stubbed at these
+    widths and real at the reference's own widths (64/128/256/512, 256x256)
+    and head dim 8."""
+    if case == "reference_widths":
+        torch.manual_seed(1)
+        replica = TorchUNet2D(chans=(64, 128, 256, 512), layers=2, groups=32, head_dim=8).eval()
+        src = _write_checkpoint(tmp_path, replica, chans=(64, 128, 256, 512), layers=2,
+                                groups=32, head_dim=8, sample=256)
+    else:
+        src = _write_checkpoint(tmp_path, replica, head_dim=4)
+    if case in ("no_head_dim", "reference_widths"):
         cfgj = json.loads(Path(src, "config.json").read_text())
         del cfgj["attention_head_dim"]
         Path(src, "config.json").write_text(json.dumps(cfgj))
@@ -144,7 +154,7 @@ def test_cli_writes_a_model_dir_and_names_plain(replica, tmp_path, capsys, monke
     cfg = load_config(str(dst / "config.yaml"))
     want_cfg, want = import_diffusers.import_unet2d(src)
     assert cfg.model == want_cfg
-    assert want_cfg.attention_head_dim == (8 if case == "no_head_dim" else 4)
+    assert want_cfg.attention_head_dim == (4 if case in ("head_dim_4", "within_limits") else 8)
     got = load_npz(str(dst / "params.npz"))
     assert sorted(got) == sorted(want) and all(np.array_equal(got[k], want[k]) for k in want)
     n = sum(v.size for v in want.values())
@@ -152,9 +162,10 @@ def test_cli_writes_a_model_dir_and_names_plain(replica, tmp_path, capsys, monke
     last = out.strip().splitlines()[-1]
     assert last.startswith("sample with: python -m drivescenegen_torch.scripts.generation "
                            f"--model_dir {dst}")
-    if case == "within_limits":
+    if case in ("within_limits", "reference_widths"):
         assert not last.endswith("--plain") and "outside the CUDA kernels' limits" not in out
     else:
         assert last.endswith(" --plain")
-        assert "attention: the kernel takes head_dim 64" in out
-        assert f"got D={want_cfg.attention_head_dim}," in out
+        assert "outside the CUDA kernels' limits: silu_conv3x3: " in out
+        assert "attention: the kernels take head_dim 64 with S % 128 == 0 or head_dim 8" in out
+        assert f"got D={want_cfg.attention_head_dim}, S=64" in out
