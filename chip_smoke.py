@@ -14,7 +14,8 @@ Phases, each printed as it runs; any failure exits non-zero:
                and the arrival counter's atomic, LDG.E.128.CONSTANT and
                ATOMG, for the GroupNorm stats; the two mma.sync shapes,
                ldmatrix .trans, cp.async and MUFU.EX2 for the head-dim-8
-               attention)
+               attention forward; the two mma.sync shapes, ldmatrix .trans,
+               movmatrix and MUFU.EX2 for the head-dim-8 backward)
   3. kernels   every kernel on the sampling path against its plain PyTorch
                version, at every shape the full-width UNet gives it
                (batch 8, 256x256; models/unet2d.py conv3x3_shapes,
@@ -32,9 +33,11 @@ Phases, each printed as it runs; any failure exits non-zero:
                shape of DriveSceneGen's own model as the import CLI
                configures it ([8, 64, 1024, 8], views of a fused qkv) and
                at ragged shapes, two runs bit-identical, timed beside
-               plain, SDPA (the kernels it ran named) and a bound that
-               also counts the exponentials (16 a clock an SM at the top
-               SM clock nvidia-smi reports), its lse output refused
+               plain, SDPA (the kernels it ran named) and the bound (the
+               exponentials at MUFU.EX2's 16 a clock an SM at the top SM
+               clock nvidia-smi reports printed beside it, outside the
+               bound: the FMA pipe can compute exp2 too), its lse output
+               against plain at a ragged shape
   4. forward   the full-width UNet2D (default widths, seeded random weights)
                with kernels against the same model with plain versions
   5. sampling  DDIM-50, batch 8, 256x256, eta 0: the launch counts of one
@@ -164,8 +167,9 @@ Phases, each printed as it runs; any failure exits non-zero:
                every forward kernel launched; the same weights at
                diffusers' default head dim 8, DriveSceneGen's own model:
                the CLI's line names no --plain, UNet2D builds on the card
-               with the kernels (its training arm refused, naming the
-               backward), its forward against plain under phase 4's gate
+               with the kernels (its training arm too, with no --plain:
+               phase 17 trains it), its forward against plain under phase
+               4's gate
                and as a CUDA graph, DDIM-50 at batch 8 timed as in phase
                5, then through the generation CLI DDIM-50 and the
                reference's DDPM-750 at batch 8 with launch counts gated
@@ -181,9 +185,27 @@ Phases, each printed as it runs; any failure exits non-zero:
                --rasterize on the card against the CPU (the WOMD fixture
                exits 1 in both, as in the JAX package: its lane lies
                outside the raster; a synthetic shard exits 0)
+  17. train8   DriveSceneGen's own model (phase 16b's import, head dim 8)
+               trained on the card: the forward with lse at the train
+               shape [14, 64, 1024, 8] (o and lse against plain; its time
+               without lse at phase 3's shape beside it); the head-dim-8
+               backward (csrc/flash_attention_bwd_d8.cu, one launch) at
+               that shape, at the heads of tp 2 and 4 and at two ragged
+               shapes, each output against plain, two runs bit-identical,
+               timed beside its bound (the products'), plain and
+               SDPA's backward (the cuDNN kernels it ran named); a
+               full-width train step of the imported weights with kernels
+               against plain under phase 7's gates, launch counts and ms
+               of ten steps, samples/s, idle share, peak memory beside
+               phase 7's; the train CLI with the import CLI's config.yaml
+               as its --cfg_file on phase 7's corpus (30 steps, a resume to
+               36, launches exact with its DDPM-750 eval samples), then
+               the generation CLI's DDIM-50 at batch 8 from its export,
+               launches gated at 2200 / 2250 / 50 / 50
 
-About 650-750 s on an H100, builds included; phase 14 about 215-295 s
-of it; phase 16 about 35 s.
+About 770-950 s on an H100, builds included; phase 14 about 215-295 s
+of it; phase 16 about 35 s; phase 17 about 90 s. It prints each phase's
+seconds before its JSON lines.
 
 The last lines are one JSON object per kernel table, the card's nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -207,7 +229,8 @@ from collections import Counter
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 BATCH, STEPS = 8, 50
-# MUFU.EX2 results a clock an SM (Hopper): the head-dim-8 attention's bound.
+# MUFU.EX2 results a clock an SM (Hopper): the head-dim-8 attention's
+# exponentials at that rate are printed beside its bound, not in it.
 EX2_PER_CLOCK = 16
 # bf16 outputs: at most 4 bf16 ulps (2^-6 relative) of the largest value.
 BF16_TOL = 2.0 ** -6
@@ -270,8 +293,20 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# (phase number, perf_counter at its start), in the order the phases run.
+PHASE_STARTS: list = []
+
+
 def phase(name: str) -> None:
+    PHASE_STARTS.append((name.split()[0], time.perf_counter()))
     print(f"== {name}", flush=True)
+
+
+def phase_seconds() -> dict:
+    """{phase number: seconds from its start to the next phase's, the last
+    one's to now}."""
+    ends = [t for _, t in PHASE_STARTS[1:]] + [time.perf_counter()]
+    return {n: round(end - t, 1) for (n, t), end in zip(PHASE_STARTS, ends)}
 
 
 def free_port() -> int:
@@ -550,16 +585,33 @@ class KernelRow:
         d["launches_per_forward"] += count
 
 
+def attention_d8_bound(B: int, heads: int, S: int, D: int, n_products: int, nbytes: float,
+                       sms: int, clock_mhz: float):
+    """(ms, bound_by, terms) of a head-dim-8 attention call: the larger of
+    its bytes / 3.35 TB/s and its n_products products (2 S^2 D FLOP each
+    per (batch, head)) / 989 TFLOP/s. terms also holds, as a design note
+    and outside the bound, its B heads S^2 exponentials at MUFU.EX2's rate
+    alone (EX2_PER_CLOCK x SMs x the SM's top clock): a kernel can beat
+    that time by computing some exp2 on the FMA pipe, as cuDNN's SDPA
+    backward does at head dim 8."""
+    exps = B * heads * S * S
+    terms = {"bytes": nbytes / PEAK_BYTES * 1e3,
+             "products": n_products * 2 * exps * D / PEAK_BF16_FLOPS * 1e3}
+    by = max(terms, key=terms.get)
+    terms["exponentials_mufu_only"] = exps / (EX2_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
+    return terms[by], "bytes" if by == "bytes" else "operations", terms
+
+
 def attention_d8_checks(mcfg, B: int, row: KernelRow) -> dict:
     """Phase 3's head-dim-8 forward (csrc/flash_attention_d8.cu): at the
     mid-block attention of mcfg (mid_attention_shape) at batch B, its q, k
     and v views of a fused qkv as the model makes them, then at ragged
     shapes, each within BF16_TOL x the largest output of its plain version
-    and two runs bit-identical; an lse request refused. The main shape is
+    and two runs bit-identical; its lse output at a ragged shape against
+    plain (phase 17 checks it at the train shape). The main shape is
     timed beside plain, SDPA (its backend named by the kernels it ran) and
-    the bound, the largest of bytes / 3.35 TB/s, products / 989 TFLOP/s and
-    exponentials / (EX2_PER_CLOCK x SMs x the SM's top clock). Its numbers
-    go into `row`; returns them."""
+    the bound (attention_d8_bound). Its numbers go into `row`; returns
+    them."""
     import torch
     import torch.nn.functional as F
 
@@ -592,15 +644,11 @@ def attention_d8_checks(mcfg, B: int, row: KernelRow) -> dict:
     qkv = fused(B, heads, S)
     err, ref_max = held(*split(qkv, heads), f"[{B},{heads},{S},{D}] (the imported model's, views "
                                             f"of a fused qkv)")
-    flops = 4 * B * heads * S * S * D
     nbytes = 4 * B * heads * S * D * 2
     exps = B * heads * S * S
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(smi_query("clocks.max.sm"))
-    terms = {"bytes": nbytes / PEAK_BYTES * 1e3, "products": flops / PEAK_BF16_FLOPS * 1e3,
-             "exponentials": exps / (EX2_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3}
-    by = max(terms, key=terms.get)
-    bnd = (terms[by], "bytes" if by == "bytes" else "operations")
+    *bnd, terms = attention_d8_bound(B, heads, S, D, 2, nbytes, sms, clock_mhz)
     ms, _ = time_cold_ms(lambda a: ops.attention(*split(a, heads), sc), (qkv,), bnd, nbytes)
     plain, _ = time_cold_ms(lambda a: ops.reference_attention(*split(a, heads), sc), (qkv,), bnd,
                             nbytes)
@@ -612,9 +660,10 @@ def attention_d8_checks(mcfg, B: int, row: KernelRow) -> dict:
     row.add(1, err, ref_max, ms, plain, bnd, lib)
     print(f"attention     [{B},{heads},{S},{D}]: {ms:.4f} ms ({exps / ms / 1e9:.1f} G exp/s, "
           f"{100 * bnd[0] / ms:.1f}% of the bound), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
-          f"(ran {sdpa or 'not measured'}), bound {bnd[0]:.4f} ms ({by}: {exps / 1e6:.1f} M at "
-          f"{EX2_PER_CLOCK} a clock x {sms} SMs x {clock_mhz:.0f} MHz; products "
-          f"{terms['products']:.4f}, bytes {terms['bytes']:.4f} ms)  x1")
+          f"(ran {sdpa or 'not measured'}), bound {bnd[0]:.4f} ms ({bnd[1]}: products "
+          f"{terms['products']:.4f}, bytes {terms['bytes']:.4f} ms; the {exps / 1e6:.1f} M "
+          f"exponentials at MUFU's {EX2_PER_CLOCK} a clock x {sms} SMs x {clock_mhz:.0f} MHz "
+          f"alone {terms['exponentials_mufu_only']:.4f} ms)  x1")
     del qkv, q, k, v
 
     # Ragged shapes: one head, odd head and batch counts, S = 128 and 256;
@@ -628,12 +677,14 @@ def attention_d8_checks(mcfg, B: int, row: KernelRow) -> dict:
     wide = [torch.randn(3, 5, 384, 2 * D, generator=gen, device=dev).bfloat16() for _ in range(3)]
     q, k, v = (t[..., D:] for t in wide)
     held(q, k, v, f"[3,5,384,{D}] (ragged) strides {tuple(q.stride())}")
-    try:
-        ops.attention_with_lse(q, k, v, sc)
-    except ValueError as e:
-        print(f"attention_with_lse at head dim {D} refused: {e}")
-    else:
-        raise SmokeFailure(f"attention_with_lse ran at head dim {D}: that kernel writes no lse")
+    o, lse = ops.attention_with_lse(q, k, v, sc)
+    ref = ops.reference_attention(q, k, v, sc)
+    e_o, m_o = (o.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+    lse_err = (lse - ops.reference_attention_lse(q, k, sc)).abs().max().item()
+    check(e_o <= BF16_TOL * m_o and lse_err <= LSE_TOL,
+          f"attention_with_lse [3,5,384,{D}] (ragged): o err {e_o} (max {m_o}), lse err {lse_err}")
+    print(f"attention_with_lse [3,5,384,{D}] (ragged): o err {e_o:.3g} (max {m_o:.3g}), lse err "
+          f"{lse_err:.3g} (tol {LSE_TOL})")
     return dict(ms=ms, plain_ms=plain, sdpa_ms=lib, sdpa_kernels=sdpa, bound_ms=bnd[0],
                 bound_terms_ms=terms, clock_mhz=clock_mhz, sms=sms, max_abs_err=err,
                 shape=[B, heads, S, D])
@@ -781,7 +832,8 @@ def phase_stage2(here: str, work: str, model_dir: str, q_ddim, ddim_rate: float)
     n_batches = E2E_SCENES // B
     want = {"silu_conv3x3": 44 * STEPS * n_batches, "gn_mul_add": 45 * STEPS * n_batches,
             "silu_affine": STEPS * n_batches, "attention": STEPS * n_batches,
-            "attention_bwd_prep": 0, "attention_bwd_main": 0, "attention_bwd_dq": 0}
+            "attention_bwd_prep": 0, "attention_bwd_main": 0, "attention_bwd_dq": 0,
+            "attention_bwd_d8": 0}
     check(counts == want, f"end-to-end launch counts {counts} != {want}")
     check(stats["n_images"] == E2E_SCENES and
           stats["n_ok"] + stats["n_rejected"] + stats["n_failed"] == E2E_SCENES,
@@ -1695,7 +1747,8 @@ def phase_tp_train(here: str, work: str, inputs7: str) -> dict:
         check(diff.max().item() <= bound, f"the TP run's {name} is {diff.max().item()} away")
         check(upd >= TRAIN_COS_MIN, f"the TP run's {name} moved along {upd} of the one process's")
     want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
-             "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1}
+             "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1,
+             "attention_bwd_d8": 0}
     for r in ranks:
         check(r["launches_step1"] == want1, f"rank {r['rank']} launched {r['launches_step1']} "
                                             f"in one TP step, not {want1}")
@@ -1910,8 +1963,8 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
     # 16b: the same weights with no attention_head_dim in config.json:
     # diffusers' default of 8, DriveSceneGen's own architecture (64 heads of
     # 8 over 1024 tokens). The import closes without --plain; UNet2D builds
-    # on CUDA with the kernels (the training arm stays refused: the
-    # backward takes head dim 64 only); its forward against plain; DDIM-50
+    # on CUDA with the kernels (the training arm too, which phase 17
+    # trains); its forward against plain; DDIM-50
     # timed as phase 5 times it; then DDIM-50 and DDPM-750 through the
     # generation CLI, each launch counted, and a --plain DDIM-50 beside.
     ckpt8 = os.path.join(work, "diffusers8", "unet")
@@ -1931,15 +1984,12 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
           f"--model_dir {imported8}", f"import CLI at head dim 8: limits "
           f"{kernel_limit_errors(icfg8)}, attention {shape8}, closing line {last!r}")
     training_limits = kernel_limit_errors(icfg8, for_training=True)
-    try:
-        UNet2D(icfg8, device=dev, for_training=True)
-    except ValueError as e:
-        check(training_limits and all(why in str(e) for why in training_limits)
-              and "attention backward" in str(e), f"head dim 8 training arm refused: {e}")
-        print("training arm at head dim 8 on CUDA refused at construction: "
-              + str(e).replace("\n", " | "))
-    else:
-        raise SmokeFailure("UNet2D(head dim 8, for_training=True) built on CUDA")
+    check(training_limits == [], f"head dim 8 training arm outside the limits: {training_limits}")
+    arm = UNet2D(icfg8, device=dev, for_training=True)
+    check(arm.for_training and not arm.plain, "head dim 8 training arm")
+    print("training arm at head dim 8 built on CUDA with the kernels, no --plain (phase 17 "
+          "trains it)")
+    del arm
     model, _ = generation.load_model_for_sampling(load_config(), imported8, dev)
     plain = UNet2D(icfg8, device=dev, plain=True).eval()
     plain.load_state_dict(model.state_dict())
@@ -2087,6 +2137,254 @@ def phase_import_eval(here: str, work: str, rows: dict, fwd_graph_ms: float,
               f"output and rc equal to the CPU's")
     out["phase_s"] = time.perf_counter() - t16
     print(f"phase 16: {out['phase_s']:.1f} s")
+    return out
+
+
+# Phase 17: DriveSceneGen's own model (phase 16b's import, head dim 8)
+# trained on the card: the forward with lse and the head-dim-8 backward
+# (csrc/flash_attention_bwd_d8.cu) at its train shape, at the heads of tp 2
+# and 4 and at ragged shapes; a full-width train step against plain; the
+# train CLI on the import CLI's own config.yaml, then the generation CLI on
+# its export.
+TRAIN8_RAGGED = ((1, 1, 128), (3, 5, 384))
+
+
+def phase_train8(here: str, work: str, rows: dict, train_path, tcfg, d8_numbers: dict,
+                 numbers7: dict, smi: str) -> dict:
+    """Phase 17 (see above). Fills rows["attention_bwd_d8"], adds the lse
+    path to rows["attention_d8"] and the phase's paths to every row's
+    launches; returns its numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from drivescenegen_torch import ops
+    from drivescenegen_torch.config import load_config
+    from drivescenegen_torch.models.convert import flax_to_torch, load_npz
+    from drivescenegen_torch.models.unet2d import kernel_limit_errors, mid_attention_shape
+    from drivescenegen_torch.scripts import generation
+    from drivescenegen_torch.training.checkpoint import latest_step
+
+    phase("17 train8: DriveSceneGen's own model (head dim 8) trained on the card: the "
+          "forward with lse and the head-dim-8 backward, a full-width train step against "
+          "plain, the train CLI on the import CLI's config.yaml, the generation CLI")
+    t17 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    imported8 = os.path.join(work, "imported8")
+    cfg_yaml = os.path.join(imported8, "config.yaml")
+    icfg8 = load_config(cfg_yaml).model
+    heads, S, D = mid_attention_shape(icfg8)
+    TB = tcfg.batch_size
+    check((heads, S, D) == (64, 1024, 8) and kernel_limit_errors(icfg8, for_training=True) == [],
+          f"the imported model trains at {(heads, S, D)}, limits "
+          f"{kernel_limit_errors(icfg8, for_training=True)}")
+    sc = 1.0 / math.sqrt(D)
+    sms, clock_mhz = d8_numbers["sms"], d8_numbers["clock_mhz"]
+    out = {"card": smi}
+
+    def fused(Bq, Hq, Sq):
+        qkv = torch.randn(Bq, Sq, 3 * Hq * D, generator=gen, device=dev).bfloat16()
+        return [t.view(Bq, Sq, Hq, D).transpose(1, 2) for t in qkv.split(Hq * D, dim=-1)]
+
+    def err_of(got, ref):
+        return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+
+    # 17a: the forward with lse at the train shape, on views of a fused qkv;
+    # the launch without lse at phase 3's shape beside it (row 3b).
+    q, k, v = fused(TB, heads, S)
+    o, lse = ops.attention_with_lse(q, k, v, sc)
+    e_o, m_o = err_of(o, ops.reference_attention(q, k, v, sc))
+    lse_err = (lse - ops.reference_attention_lse(q, k, sc)).abs().max().item()
+    label = f"[{TB},{heads},{S},{D}]"
+    print(f"attention_with_lse {label}: o err {e_o:.3g} (max {m_o:.3g}, tol "
+          f"{BF16_TOL * m_o:.3g}), lse max abs err {lse_err:.3g} (tol {LSE_TOL})")
+    check(e_o <= BF16_TOL * m_o, f"attention_with_lse {label} o: err {e_o} vs max {m_o}")
+    check(lse_err <= LSE_TOL, f"attention_with_lse {label} lse err {lse_err}")
+    fwd_bytes = 4 * TB * heads * S * D * 2 + TB * heads * S * 4
+    fwd_bnd = attention_d8_bound(TB, heads, S, D, 2, fwd_bytes, sms, clock_mhz)
+    fwd_ms = time_ms(lambda: ops.attention_with_lse(q, k, v, sc))
+    fwd_plain = time_ms(lambda: (ops.reference_attention(q, k, v, sc),
+                                 ops.reference_attention_lse(q, k, sc)), graph=False)
+    fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))
+    q8, k8, v8 = fused(BATCH, heads, S)
+    nolse_ms = time_ms(lambda: ops.attention(q8, k8, v8, sc))
+    lse8_ms = time_ms(lambda: ops.attention_with_lse(q8, k8, v8, sc))
+    print(f"attention_with_lse {label}: {fwd_ms:.4f} ms ({100 * fwd_bnd[0] / fwd_ms:.1f}% of the "
+          f"bound {fwd_bnd[0]:.4f}, {fwd_bnd[1]}), SDPA forward {fwd_lib:.4f} ms, plain "
+          f"{fwd_plain:.4f} ms; at [{BATCH},{heads},{S},{D}] without lse {nolse_ms:.4f} ms "
+          f"(phase 3: {d8_numbers['ms']:.4f} cold), with lse "
+          f"{lse8_ms:.4f} ms  ({smi})")
+    rows["attention_d8"].d["with_lse"] = dict(
+        shape=[TB, heads, S, D], ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib,
+        bound_ms=fwd_bnd[0], bound_by=fwd_bnd[1], max_abs_err=e_o, lse_max_abs_err=lse_err,
+        no_lse_ms_batch8=nolse_ms, lse_ms_batch8=lse8_ms)
+    out["forward_lse"] = rows["attention_d8"].d["with_lse"]
+    del q, k, v, o, lse, q8, k8, v8
+
+    # 17b: the backward at the train shape, at the heads of tp 2 and 4 and
+    # at ragged shapes (a dO whose last dim is not contiguous, odd batch and
+    # heads), each output within BF16_TOL x its largest plain value, two
+    # runs bit-identical; the first three timed.
+    bwd = {}
+    shapes = [(TB, heads // tp, S, f"tp {tp}" if tp > 1 else "train") for tp in (1, 2, 4)]
+    shapes += [(b_, h_, s_, "ragged") for b_, h_, s_ in TRAIN8_RAGGED]
+    for Bq, Hq, Sq, kind in shapes:
+        q, k, v = fused(Bq, Hq, Sq)
+        if kind == "ragged" and Bq == 1:
+            do = torch.randn(Bq, Hq, D, Sq, generator=gen, device=dev).bfloat16().transpose(2, 3)
+        else:
+            do = torch.randn(Bq, Sq, Hq, D, generator=gen, device=dev).bfloat16().transpose(1, 2)
+        o, lse = ops.attention_with_lse(q, k, v, sc)
+        got = ops.attention_bwd(q, k, v, o, lse, do, sc)
+        again = ops.attention_bwd(q, k, v, o, lse, do, sc)
+        ref = ops.reference_attention_bwd(q, k, v, o, lse, do, sc)
+        lab = f"[{Bq},{Hq},{Sq},{D}] ({kind})"
+        errs = []
+        for name, a_, b_ in zip(("dq", "dk", "dv"), got, ref):
+            e, m = err_of(a_, b_)
+            errs.append((e, m))
+            check(e <= BF16_TOL * m, f"attention_bwd_d8 {lab} {name}: err {e} vs max {m}")
+        same = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+        check(same, f"attention_bwd_d8 {lab} is not deterministic")
+        print(f"attention_bwd_d8 {lab}: " + ", ".join(
+            f"{n} err {e:.3g} (max {m:.3g}, tol {BF16_TOL * m:.3g})"
+            for n, (e, m) in zip(("dq", "dk", "dv"), errs)) + "; two runs bit-identical")
+        entry = dict(max_abs_err=max(e for e, _ in errs), max_abs=max(m for _, m in errs))
+        del got, again, ref
+        if kind != "ragged":
+            elems, nrows = Bq * Hq * Sq * D, Bq * Hq * Sq
+            nbytes = 8 * elems * 2 + nrows * 4  # q k v o dO in, dq dk dv out; lse
+            bnd = attention_d8_bound(Bq, Hq, Sq, D, 5, nbytes, sms, clock_mhz)
+            ms, _ = time_cold_ms(lambda *x: ops.attention_bwd_d8(*x, sc), (q, k, v, o, lse, do),
+                                 bnd, nbytes)
+            plain = time_ms(lambda: ops.reference_attention_bwd(q, k, v, o, lse, do, sc),
+                            graph=False)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(ql, kl, vl, scale=sc)
+            lib = device_ms(lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), do,
+                                                        retain_graph=True))
+            lib_kernels = sorted({r[0][:90] for r in device_kernels(
+                lambda: torch.autograd.grad(sdpa_out, (ql, kl, vl), do, retain_graph=True))
+                if "emset" not in r[0]})
+            exps = Bq * Hq * Sq * Sq
+            print(f"attention_bwd_d8 {lab}: {ms:.4f} ms ({exps / ms / 1e9:.1f} G exp/s, "
+                  f"{100 * bnd[0] / ms:.1f}% of the bound {bnd[0]:.4f} ms, {bnd[1]}: "
+                  f"products {bnd[2]['products']:.4f}, bytes {bnd[2]['bytes']:.4f}; the "
+                  f"exponentials at MUFU's rate alone {bnd[2]['exponentials_mufu_only']:.4f}), "
+                  f"SDPA backward "
+                  f"({sdpa_out.grad_fn.name()}, device time) {lib:.4f} ms (ran "
+                  f"{lib_kernels or 'not measured'}), plain {plain:.4f} ms  ({smi})")
+            entry.update(ms=ms, plain_ms=plain, library_ms=lib, library_kernels=lib_kernels,
+                         bound_ms=bnd[0], bound_by=bnd[1], bound_terms_ms=bnd[2])
+            del ql, kl, vl, sdpa_out
+        bwd[lab] = entry
+        del q, k, v, o, lse, do
+        torch.cuda.empty_cache()
+    out["backward"] = bwd
+    row = rows["attention_bwd_d8"]
+    main = bwd[f"[{TB},{heads},{S},{D}] (train)"]
+    # plain_ms and library_ms are the whole backward's, as the launch is.
+    row.add(1, main["max_abs_err"], main["max_abs"], main["ms"], main["plain_ms"],
+            (main["bound_ms"], main["bound_by"]), main["library_ms"])
+    for tp in (2, 4):
+        e = bwd[f"[{TB},{heads // tp},{S},{D}] (tp {tp})"]
+        row.d.setdefault("tp_shapes", {})[f"tp {tp}: [{TB},{heads // tp},{S},{D}]"] = {
+            n: e[n] for n in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                              "max_abs_err")}
+
+    # 17c: a full-width train step of the imported model (its weights,
+    # head dim 8, torch_pad_downsample) with kernels against plain, then a
+    # run of steps, beside phase 7's head-dim-64 step.
+    S0 = icfg8.sample_size
+    weights = flax_to_torch(load_npz(os.path.join(imported8, "params.npz")), icfg8)
+    weights = {n: t.to(dev) for n, t in weights.items()}
+    batch = torch.randint(0, 256, (TB, S0, S0, icfg8.in_channels), generator=gen,
+                          device=dev).to(torch.uint8)
+    noise = torch.randn(TB, S0, S0, icfg8.in_channels, generator=gen, device=dev)
+    t_ = torch.randint(0, 1000, (TB,), generator=gen, device=dev)
+    tr = train_path(icfg8, tcfg, batch, noise, t_, None, f"head dim 8, batch {TB}",
+                    weights=weights)
+    print(f"head dim 8 train step, batch {TB}: median {tr['med_ms']:.2f} ms, "
+          f"{tr['samples_per_s']:.2f} samples/s, device idle "
+          f"{'not measured' if tr['idle'] is None else f'{100 * tr['idle']:.1f}%'}, peak "
+          f"{tr['peak_gb']:.2f} GB; phase 7's head-dim-64 step {numbers7['med_ms']:.2f} ms, "
+          f"{numbers7['samples_per_s']:.2f} samples/s, peak {numbers7['peak_gb']:.2f} GB  ({smi})")
+    name = f"phase 17 train step of the imported model, head dim 8, batch {TB} (x{TRAIN_STEPS})"
+    for k_, r_ in rows.items():
+        r_.d["launches_by_path"][name] = tr["counts"][k_]
+    row.d["launches"] = tr["counts"]["attention_bwd_d8"]
+    row.d["launches_per_train_step"] = tr["counts"]["attention_bwd_d8"] // TRAIN_STEPS
+    out["train_step"] = {k_: tr[k_] for k_ in ("med_ms", "step_ms", "samples_per_s", "idle",
+                                               "peak_gb", "counts")}
+    del weights, batch, noise, t_
+    torch.cuda.empty_cache()
+
+    # 17d: the train CLI with the import CLI's config.yaml as its --cfg_file
+    # (default TrainConfig: batch 14, no EMA, DDPM-750 eval samples) on
+    # phase 7's corpus, ~30 steps, a resume, the export; then the
+    # generation CLI's DDIM-50 at batch 8 from it.
+    pattern = os.path.join(work, "train7", "data", "*.png")
+    run_dir = os.path.join(work, "train8")
+    cli = {}
+    for steps, extra in ((CLI_STEPS, []), (CLI_RESUME_STEPS, ["--resume"])):
+        t0 = time.perf_counter()
+        log = run_cli(here, ["--cfg_file", cfg_yaml, "--dataset_glob", pattern, "--output_dir",
+                             run_dir, "--max_steps", str(steps), *extra])
+        wall = time.perf_counter() - t0
+        launched = logged_launches(log)
+        fwd_src = logged_launches(log, "attention forward launches by source")
+        trained = steps - (CLI_STEPS if extra else 0)
+        samples = log.count(": sample -> ")
+        want = {"silu_conv3x3": 44 * DDPM_STEPS * samples, "gn_mul_add": 45 * DDPM_STEPS * samples,
+                "silu_affine": DDPM_STEPS * samples, "attention": trained + DDPM_STEPS * samples,
+                "attention_bwd_prep": 0, "attention_bwd_main": 0, "attention_bwd_dq": 0,
+                "attention_bwd_d8": trained}
+        check(launched == want, f"train CLI (head dim 8) launches {launched} != {want}")
+        check(fwd_src == {"flash_attention": 0, "flash_attention_d8": want["attention"]},
+              f"train CLI (head dim 8) forward launches by source: {fwd_src}")
+        check(latest_step(os.path.join(run_dir, "checkpoints")) == steps,
+              f"train CLI (head dim 8) ended without a checkpoint at step {steps}")
+        if extra:
+            check(f"resumed from step {CLI_STEPS}" in log, "train CLI --resume did not resume")
+        records = [json.loads(ln) for ln in open(os.path.join(run_dir, "logs", "metrics.jsonl"))]
+        last = records[-1]
+        check(last["step"] == steps and math.isfinite(last["loss"]),
+              f"train CLI (head dim 8) ended at {last}")
+        key = "resume" if extra else "run"
+        cli[key] = dict(steps=trained, wall_s=wall, eval_samples=samples, launches=launched,
+                        last_log=last)
+        print(f"train CLI --cfg_file {os.path.relpath(cfg_yaml, work)}"
+              f"{' --resume' if extra else ''}: {trained} steps to step {steps} in {wall:.1f} s wall (process start, upload, "
+              f"checkpoints and {samples} DDPM-{DDPM_STEPS} eval sample(s) included); last log "
+              f"loss {last['loss']:.4f} at {last['samples_per_sec']:.1f} samples/s; launches "
+              f"{launched}")
+        name = (f"phase 17 train CLI, import CLI's config.yaml, head dim 8, {trained} steps"
+                f"{' after --resume' if extra else ''} and {samples} DDPM-{DDPM_STEPS} eval "
+                f"sample(s) at batch 1")
+        per_row = row_launches(launched, fwd_src, head_dim=8)
+        for k_, r_ in rows.items():
+            r_.d["launches_by_path"][name] = per_row[k_]
+    check(os.path.exists(os.path.join(run_dir, "params.npz")), "train CLI wrote no params.npz")
+    gen_dir = os.path.join(work, "gen17")
+    ops.reset_launch_counts()
+    rate = generation.main(["--model_dir", run_dir, "--output_dir", gen_dir, "--sampler", "ddim",
+                            "--steps", str(STEPS), "--batch_size", str(BATCH), "--num_batches",
+                            "1", "--device", "cuda"])
+    counts = ops.launch_counts()
+    per_row = row_launches(counts, ops.attention.launches_by_source, head_dim=8)
+    pngs = sorted(os.listdir(gen_dir))
+    want = {k_: {"silu_conv3x3": 44, "gn_mul_add": 45, "silu_affine": 1,
+                 "attention": 1}.get(k_, 0) * STEPS for k_ in counts}
+    name = f"phase 17 generation CLI from the head-dim-8 export, DDIM-{STEPS} batch {BATCH}"
+    print(f"{name}: {len(pngs)} PNGs at {rate:.4f} scenes/s; launches {counts}")
+    check(pngs == [f"loop_000_batch_{i:03d}.png" for i in range(BATCH)], f"{name} wrote {pngs}")
+    check(counts == want, f"{name} launches {counts} != {want}")
+    for k_, r_ in rows.items():
+        r_.d["launches_by_path"][name] = per_row[k_]
+    cli["generation_scenes_per_s"] = rate
+    out["cli"] = cli
+    out["phase_s"] = time.perf_counter() - t17
+    print(f"phase 17: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2493,7 +2791,7 @@ def main() -> int:
     print(f"DDIM-{STEPS}: {dt:.3f} s, {B / dt:.4f} scenes/s; launches {counts}")
     want = {"silu_conv3x3": 44 * STEPS, "gn_mul_add": 45 * STEPS, "silu_affine": STEPS,
             "attention": STEPS, "attention_bwd_prep": 0, "attention_bwd_main": 0,
-            "attention_bwd_dq": 0}
+            "attention_bwd_dq": 0, "attention_bwd_d8": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     # The eager loop launches every kernel from the host, whose cores the
     # machine shares: two more runs show the spread, and the CUDA-graph
@@ -2708,6 +3006,12 @@ def main() -> int:
     rows["attention_bwd_prep"] = KernelRow("attention_bwd_prep", "cuda", src, f"{lib_file}:273")
     rows["attention_bwd_main"] = KernelRow("attention_bwd_main", "cuda", src, f"{lib_file}:941")
     rows["attention_bwd_dq"] = KernelRow("attention_bwd_dq", "cuda", src, f"{lib_file}:1287")
+    # The head-dim-8 backward's row is measured in phase 17; it exists from
+    # here so that every path records its launches (0 but on phase 17's).
+    rows["attention_bwd_d8"] = KernelRow(
+        "attention_bwd_d8", "cuda", "drivescenegen_torch/csrc/flash_attention_bwd_d8.cu",
+        f"{lib_file}:941")
+    rows["attention_bwd_d8"].d["also_replaces"] = f"{lib_file}:1287 and :273 (dQ, di)"
     rows["attention_bwd_prep"].add(1, e_di, m_di, prep_ms, t7["di_plain_ms"], bnd_prep,
                                    t7["di_lib_ms"])
     # plain_ms and library_ms of the main row are the whole backward's: no
@@ -2755,16 +3059,19 @@ def main() -> int:
     del q, k, v, do, o, lse, got, ref, again
     torch.cuda.empty_cache()
 
-    def train_path(mcfg, tcfg, batch, noise, t_, keep, label, keep_inputs=None):
+    def train_path(mcfg, tcfg, batch, noise, t_, keep, label, keep_inputs=None, weights=None):
         """One train step with kernels against one with plain versions on the
         same weights, batch, noise, t (and keep mask): loss, grad_norm,
-        gradient cosine, every parameter's gradient, the launches; then a
-        run of steps: launches, ms per step, samples/s, the device's idle
-        share and peak memory. Returns those numbers. keep_inputs: a path
-        the weights, batch, noise and t are saved to (phase 15 reads them)."""
+        gradient cosine, every parameter's gradient, the launches (the
+        attention's kernels of mcfg's head dim); then a run of steps:
+        launches, ms per step, samples/s, the device's idle share and peak
+        memory. Returns those numbers. keep_inputs: a path the weights,
+        batch, noise and t are saved to (phase 15 reads them); weights: a
+        state dict to start from instead of seeded random ones."""
         TB = batch.shape[0]
         schedule = make_schedule(device=dev)
-        weights = UNet2D(mcfg, device=dev, generator=gen).state_dict()
+        if weights is None:
+            weights = UNet2D(mcfg, device=dev, generator=gen).state_dict()
         if keep_inputs:
             torch.save(dict(weights=weights, batch=batch, noise=noise, t=t_), keep_inputs)
 
@@ -2800,8 +3107,11 @@ def main() -> int:
         check(abs(lk - lp) <= TRAIN_LOSS_TOL * abs(lp), f"{label} train step loss differs")
         check(abs(gk - gp) <= TRAIN_GNORM_TOL * abs(gp), f"{label} train step grad_norm differs")
         check(cos >= TRAIN_COS_MIN, f"{label} train step gradient cosine {cos}")
+        head_dim = mid_attention_shape(mcfg)[2]
+        d8 = int(head_dim == 8)
         want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
-                 "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1}
+                 "attention_bwd_prep": 1 - d8, "attention_bwd_main": 1 - d8,
+                 "attention_bwd_dq": 1 - d8, "attention_bwd_d8": d8}
         check(ck == want1, f"launches in one kernel train step {ck} != {want1}")
         check(set(cp.values()) == {0}, f"the plain step launched kernels: {cp}")
         del results, fk, fp
@@ -2821,7 +3131,7 @@ def main() -> int:
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
         train_counts = ops.launch_counts()
-        per_row = row_launches(train_counts, ops.attention.launches_by_source)
+        per_row = row_launches(train_counts, ops.attention.launches_by_source, head_dim)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = {name: n * TRAIN_STEPS for name, n in want1.items()}
         print(f"{label}: {TRAIN_STEPS} train steps: launches {train_counts}")
@@ -3233,6 +3543,11 @@ def main() -> int:
     # --------------------------------------------------------------- 16
     import_eval_numbers = phase_import_eval(here, work, rows, fwd_graph_ms, dt)
 
+    # --------------------------------------------------------------- 17
+    train8_numbers = phase_train8(here, work, rows, train_path, tcfg, d8_numbers, tr, smi)
+
+    seconds = phase_seconds()
+    print(f"seconds by phase: {seconds}, {time.perf_counter() - t_main:.1f} s in all")
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
                                   "forward_graph_ms": fwd_graph_ms,
                                   "ddim_seconds": dt, "ddim_scenes_per_s": B / dt,
@@ -3260,7 +3575,9 @@ def main() -> int:
                                   "tensor_parallel": tp_numbers,
                                   "import_eval": import_eval_numbers,
                                   "attention_d8": d8_numbers,
+                                  "train_head_dim8": train8_numbers,
                                   "script_s": time.perf_counter() - t_main,
+                                  "phase_s": seconds,
                                   "card": smi}}))
     print(json.dumps({"kernels": [row.d for row in rows.values()]}))
     print(smi)

@@ -46,10 +46,13 @@
 //     most 128 registers a thread leave room for 4 CTAs (16 warps) an SM,
 //     whose independent exponentials keep MUFU fed.
 // The row sums are normalized once at the end; the epilogue writes bf16
-// straight into the [B, S, heads, D] output. No lse output: the backward
-// kernels (flash_attention_bwd.cu) take head dim 64 only, so the training
-// arm is refused at D = 8 (models/unet2d.py kernel_limit_errors) and the
-// entry point refuses an lse buffer.
+// straight into the [B, S, heads, D] output. With an lse buffer it also
+// writes each row's log-sum-exp, the residual the head-dim-8 backward
+// (flash_attention_bwd_d8.cu) reads: f32, natural log, scale included, as
+// flash_attention.cu writes it. The running max m is in log2 units with
+// log2(e) * scale folded in, so lse = (m + log2(l)) * ln(2). The lse store
+// is a template argument: the launch without one runs the same code as
+// before it existed.
 //
 // SASS must hold: HMMA.1688.F32.BF16 HMMA.16816.F32.BF16 LDSM.16.MT88.4 LDGSTS MUFU.EX2
 
@@ -191,11 +194,12 @@ __device__ __forceinline__ void softmax_step(float (&acc)[4], float (&m)[2], flo
   }
 }
 
+template <bool WITH_LSE>
 __global__ void __launch_bounds__(THREADS, 4)
 flash_attention_d8_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          int S, Strides qs, Strides ks, Strides vs, Strides os,
-                          float scale_log2) {
+                          float* __restrict__ lse, int S, Strides qs, Strides ks, Strides vs,
+                          Strides os, float scale_log2) {
   __shared__ __align__(128) uint4 kv[STAGES][2][KC];  // [stage][K, V][key]: one row each
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
@@ -270,6 +274,10 @@ flash_attention_d8_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       const long long row = row0 + 16 * mt + 8 * r;
       *reinterpret_cast<uint32_t*>(oh + row * os.s) =
           pack_bf16x2(acc[mt][2 * r] * inv, acc[mt][2 * r + 1] * inv);
+      if (WITH_LSE && tq == 0) {
+        lse[((long long)b * gridDim.y + h) * S + row] =
+            (m_run[mt][r] + log2f(sum)) * 0.6931471805599453f;
+      }
     }
   }
 }
@@ -278,8 +286,9 @@ flash_attention_d8_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
 
 // q, k, v, o: bf16 [B, heads, S, 8] with the given element strides (the
 // last dim contiguous, the others multiples of 8, the bases 16-byte
-// aligned). S must be a multiple of S_MULTIPLE. lse must be null: this
-// forward writes no log-sum-exp. The signature is flash_attention.cu's.
+// aligned). S must be a multiple of S_MULTIPLE. lse: null, or f32
+// [B, heads, S] contiguous, for each row's log-sum-exp. The signature is
+// flash_attention.cu's.
 extern "C" int dsg_flash_attention_d8(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int heads, int S, int head_dim,
                                       long long qsb, long long qsh, long long qss,
@@ -288,13 +297,14 @@ extern "C" int dsg_flash_attention_d8(const void* q, const void* k, const void* 
                                       long long osb, long long osh, long long oss, float scale,
                                       void* stream) {
   if (head_dim != D || S <= 0 || S % S_MULTIPLE != 0 || B <= 0 || heads <= 0 ||
-      B > 65535 || heads > 65535 || lse != nullptr) {
+      B > 65535 || heads > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid(S / BQ, heads, B);
-  flash_attention_d8_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  auto kernel = lse ? flash_attention_d8_kernel<true> : flash_attention_d8_kernel<false>;
+  kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, S, Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
+      (__nv_bfloat16*)o, (float*)lse, S, Strides{qsb, qsh, qss}, Strides{ksb, ksh, kss},
       Strides{vsb, vsh, vss}, Strides{osb, osh, oss}, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }

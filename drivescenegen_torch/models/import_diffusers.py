@@ -21,9 +21,10 @@ Conventions, as in the JAX package:
     torch_pad_downsample=True (params identical, geometry exact)
   - attention head partitioning: head count comes from the imported
     config.json's attention_head_dim (diffusers default 8), not this
-    repo's default 64. The attention kernels take head dim 64 and 8
-    (csrc/flash_attention_d8.cu), so the reference's own model, at its
-    widths and bf16, samples on CUDA with every kernel; a model outside
+    repo's default 64. The attention kernels, forward and backward, take
+    head dim 64 and 8 (csrc/flash_attention_d8.cu,
+    csrc/flash_attention_bwd_d8.cu), so the reference's own model, at its
+    widths and bf16, samples and trains on CUDA with every kernel; a model outside
     the kernels' limits runs there only with plain=True
     (models/unet2d.py kernel_limit_errors).
   - GroupNorm eps stays the model's 1e-6 (models/unet2d.py).

@@ -478,11 +478,11 @@ def kernel_limit_errors(cfg: ModelConfig, for_training: bool = False, model: int
     kernels at the shapes conv3x3_shapes, gn_mul_add_shapes and
     mid_attention_shape list; the training arm (for_training=True) runs
     only the attention, forward and backward, at the heads of a model axis
-    of `model` (mid_attention_shape). The forward kernels take head dim 64
-    and 8, the backward 64 only, so a model at diffusers' default head dim
-    of 8 samples with the kernels and trains only with plain=True. The
-    limits are the wrappers' own predicates, read from the kernel sources
-    (ops/build.py source_int)."""
+    of `model` (mid_attention_shape). The forward and backward kernels
+    each take head dim 64 and 8, so a model at diffusers' default head dim
+    of 8 samples and trains with the kernels. The limits are the wrappers'
+    own predicates, read from the kernel sources (ops/build.py
+    source_int)."""
     errors = []
     kernels = "the attention kernels" if for_training else "silu_conv3x3, gn_mul_add and attention"
     if cfg.dtype != "bfloat16":

@@ -6,6 +6,7 @@ from drivescenegen_torch.ops.attention import (  # noqa: F401
     AttentionFunction,
     attention,
     attention_bwd,
+    attention_bwd_d8,
     attention_bwd_dq,
     attention_bwd_main,
     attention_bwd_prep,
@@ -36,9 +37,10 @@ from drivescenegen_torch.ops.group_norm import (  # noqa: F401
 )
 
 # Every kernel wrapper, for counting launches: the sampling path's four,
-# then the attention backward's three (the training path).
+# then the attention backward's (the training path): three at head dim 64,
+# one at head dim 8.
 KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention, attention_bwd_prep,
-                   attention_bwd_main, attention_bwd_dq)
+                   attention_bwd_main, attention_bwd_dq, attention_bwd_d8)
 
 
 def reset_launch_counts() -> None:

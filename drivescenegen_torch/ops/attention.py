@@ -17,20 +17,26 @@ stores each row's log-sum-exp, the residual the backward needs (the
 library saves l and m, flash_attention.py:248-251). At D = 8, diffusers'
 default head dim that an imported reference model keeps
 (csrc/flash_attention_d8.cu), the exponentials bound it and it runs
-mma.sync on K and V rows copied by cp.async; it has no lse output. The
-backward (csrc/flash_attention_bwd.cu) is three launches: a pre-pass for
+mma.sync on K and V rows copied by cp.async; with an lse buffer it writes
+the same residual. The backward also has one kernel for each head dim. At
+D = 64 (csrc/flash_attention_bwd.cu) it is three launches: a pre-pass for
 di = rowsum(o * dO) (the library's jnp step, :273); one pass over
 (128-key tile, head, batch) items that recomputes P from q, k and lse,
 writes dK and dV, and sums each query tile's dQ over the key tiles into an
 f32 accumulator in a fixed order, so the result is deterministic; and a
-dQ pass that scales the accumulator into dq.
+dQ pass that scales the accumulator into dq. At D = 8
+(csrc/flash_attention_bwd_d8.cu) it is one launch, a CTA a (head, batch)
+holding the whole head in shared memory: di in its prologue, P recomputed
+once, dQ summed over the warps' key tiles in a fixed order
+(attention_bwd_d8, whose plain version is reference_attention_bwd).
 
 `attention` runs the plain version on a CPU tensor and launches the kernel
 of q's head dim on a CUDA tensor, or raises. When grad mode is on and an
 input requires grad it goes through `AttentionFunction`, whose backward is
 `attention_bwd`. Each wrapper counts its launches in `<wrapper>.launches`;
 `attention.launches` counts the forward kernels of every head dim, and
-`attention.launches_by_source` each kernel's own, by source.
+`attention.launches_by_source` each kernel's own, by source (each
+backward kernel has wrappers of its own).
 """
 
 from __future__ import annotations
@@ -100,7 +106,7 @@ def _reference_bwd(q, k, v, lse, di, do, scale: float):
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-# The main pass leaves dQ in the order its dQ warpgroup holds it: per
+# The head-dim-64 main pass leaves dQ in the order its dQ warpgroup holds it: per
 # 64-query tile, float4 j of thread t (warp w = t // 32, lane 4g + tq) at
 # j * 128 + t, holding rows 16w + g and 16w + g + 8, columns 8j + 2tq and
 # 8j + 2tq + 1 (wgmma's accumulator layout). As dims of a [64, 64] tile:
@@ -112,6 +118,9 @@ def dq_to_fragment_order(x: torch.Tensor) -> torch.Tensor:
     """[B, heads, S, 64] -> [B, heads, S / 64, 4096] in the main pass's
     fragment order."""
     B, Hh, S, D = x.shape
+    if D != 64:
+        raise ValueError(f"dq_to_fragment_order: the fragment order is the head-dim-64 main "
+                         f"pass's, got head_dim {D}")
     t = x.reshape(B, Hh, S // 64, *_TILE_ROWS_COLS)
     return t.permute(0, 1, 2, 6, 3, 5, 7, 4, 8).reshape(B, Hh, S // 64, 64 * D)
 
@@ -124,8 +133,8 @@ def dq_from_fragment_order(acc: torch.Tensor) -> torch.Tensor:
 
 
 def reference_attention_bwd_main(q, k, v, do, lse, di, scale: float):
-    """(dk, dv, acc): the main pass's outputs given di, acc = dq / scale in
-    f32 and fragment order."""
+    """(dk, dv, acc): the head-dim-64 main pass's outputs given di, acc =
+    dq / scale in f32 and fragment order."""
     dq, dk, dv = _reference_bwd(q, k, v, lse, di, do, scale)
     return dk, dv, dq_to_fragment_order(dq.float())
 
@@ -135,8 +144,9 @@ def reference_attention_bwd_dq(acc, scale: float):
     return (dq_from_fragment_order(acc) * scale).to(torch.bfloat16)
 
 
-# The forward kernels' sources, one for each head dim.
+# The forward and backward kernels' sources, one of each for each head dim.
 _FORWARD_SOURCES = ("flash_attention", "flash_attention_d8")
+_BACKWARD_SOURCES = ("flash_attention_bwd", "flash_attention_bwd_d8")
 
 
 @functools.cache
@@ -157,13 +167,23 @@ def attention_shape_error(S: int, D: int):
     return None
 
 
+@functools.cache
+def backward_kernels() -> dict:
+    """{head dim: (source, S multiple, S max or None)} of the backward
+    kernels, read from their sources' constexpr lines (build.source_int);
+    a source with no S_MAX line takes any multiple."""
+    return {build.source_int(name, "D"): (name, build.source_int(name, "S_MULTIPLE"),
+                                          build.source_int(name, "S_MAX", required=False))
+            for name in _BACKWARD_SOURCES}
+
+
 def attention_bwd_shape_error(S: int, D: int):
-    """The same for the backward kernels (csrc/flash_attention_bwd.cu)."""
-    head_dim = build.source_int("flash_attention_bwd", "D")
-    s_multiple = build.source_int("flash_attention_bwd", "S_MULTIPLE")
-    if D != head_dim or S % s_multiple:
-        return (f"the backward kernels take head_dim {head_dim} and S % {s_multiple} == 0, "
-                f"got D={D}, S={S}")
+    """The same for the backward kernels, one for each head dim."""
+    kernels = backward_kernels()
+    if D not in kernels or S % kernels[D][1] or (kernels[D][2] and S > kernels[D][2]):
+        takes = " or ".join(f"head_dim {d} with S % {m} == 0" + (f" and S <= {x}" if x else "")
+                            for d, (_, m, x) in kernels.items())
+        return f"the backward kernels take {takes}, got D={D}, S={S}"
     return None
 
 
@@ -211,9 +231,6 @@ def _attention_kernel(q, k, v, scale: float, with_lse: bool):
     if why:
         raise ValueError(f"attention: {why}")
     name = forward_kernels()[D][0]
-    if with_lse and D != (bwd_d := build.source_int("flash_attention_bwd", "D")):
-        raise ValueError(f"attention_with_lse: the head_dim {D} kernel writes no lse; the "
-                         f"backward kernels take head_dim {bwd_d}")
     fn = _entry(name, f"dsg_{name}", 5, 12)
     out = _heads_view(B, S, Hh, D, q.device)
     lse = torch.empty((B, Hh, S), device=q.device, dtype=torch.float32) if with_lse else None
@@ -228,7 +245,8 @@ def _attention_kernel(q, k, v, scale: float, with_lse: bool):
 
 def attention_with_lse(q, k, v, scale: float):
     """(attention(q, k, v), its rows' log-sum-exp [B, heads, S] f32): the
-    forward kernel with its lse output on CUDA, the plain versions on CPU.
+    forward kernel of q's head dim with its lse output on CUDA, the plain
+    versions on CPU.
     No gradient of its own (it raises under autograd): AttentionFunction's
     forward."""
     no_backward("attention_with_lse", q, k, v, hint="ops.attention has one")
@@ -277,31 +295,40 @@ attention.launches_by_source = dict.fromkeys(_FORWARD_SOURCES, 0)
 
 def attention_bwd(q, k, v, o, lse, do, scale: float):
     """(dq, dk, dv) of attention from the forward's q, k, v, output o and
-    lse ([B, heads, S] f32) and the output's gradient do. On CUDA: the
-    pre-pass, the main pass and the dQ pass, in that order on the current
-    stream; do of any layout is copied to one they read. On CPU:
+    lse ([B, heads, S] f32) and the output's gradient do. On CUDA, the
+    kernel of q's head dim on the current stream: at D = 64 the pre-pass,
+    the main pass and the dQ pass, in that order; at D = 8 attention_bwd_d8.
+    do of any layout is copied to one they read. On CPU:
     reference_attention_bwd."""
     if _device_kind(q) == "cpu":
         return reference_attention_bwd(q, k, v, o, lse, do, scale)
-    B, Hh, S, D = q.shape
-    if do.dtype != torch.bfloat16:
-        raise TypeError(f"attention_bwd: do must be bf16, got {do.dtype}")
-    if do.shape == q.shape and not _kernel_layout(do):
-        do = do.clone(memory_format=torch.contiguous_format)  # fresh, so aligned too
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        _check_view(name, t, q, "attention_bwd")
-    if (lse.shape != (B, Hh, S) or lse.dtype != torch.float32 or not lse.is_contiguous()
-            or lse.data_ptr() % 16):
-        raise ValueError(f"attention_bwd: lse must be contiguous 16-byte aligned f32 "
-                         f"[{B}, {Hh}, {S}]")
-    if lse.device != q.device:
-        raise ValueError(f"attention_bwd: lse must be on {q.device}")
-    why = attention_bwd_shape_error(S, D)
-    if why:
-        raise ValueError(f"attention_bwd: {why}")
+    if backward_kernels().get(q.shape[-1], ("",))[0] == "flash_attention_bwd_d8":
+        return attention_bwd_d8(q, k, v, o, lse, do, scale)
+    do = _checked_bwd_inputs(q, k, v, o, lse, do, "attention_bwd")
     di, sems = attention_bwd_prep(o, do)
     dk, dv, acc = attention_bwd_main(q, k, v, do, lse, di, sems, scale)
     return attention_bwd_dq(acc, scale), dk, dv
+
+
+def _checked_bwd_inputs(q, k, v, o, lse, do, what: str):
+    """do, copied to the kernels' layout where it is not in it, once q, k,
+    v, o, lse and do are what the backward kernels read; raises if not."""
+    B, Hh, S, D = q.shape
+    if do.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: do must be bf16, got {do.dtype}")
+    if do.shape == q.shape and not _kernel_layout(do):
+        do = do.clone(memory_format=torch.contiguous_format)  # fresh, so aligned too
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check_view(name, t, q, what)
+    if (lse.shape != (B, Hh, S) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.data_ptr() % 16):
+        raise ValueError(f"{what}: lse must be contiguous 16-byte aligned f32 [{B}, {Hh}, {S}]")
+    if lse.device != q.device:
+        raise ValueError(f"{what}: lse must be on {q.device}")
+    why = attention_bwd_shape_error(S, D)
+    if why:
+        raise ValueError(f"{what}: {why}")
+    return do
 
 
 def attention_bwd_prep(o, do):
@@ -361,3 +388,27 @@ def attention_bwd_dq(acc, scale: float):
 
 
 attention_bwd_dq.launches = 0
+
+
+def attention_bwd_d8(q, k, v, o, lse, do, scale: float):
+    """The head-dim-8 backward, one launch on CUDA tensors (attention_bwd
+    takes CPU ones), with attention_bwd's checks: (dq, dk, dv), each a
+    [B, heads, S, 8] view of a [B, S, heads, 8] buffer. It computes di
+    itself."""
+    if _device_kind(q) != "cuda":
+        raise ValueError(f"attention_bwd_d8: CUDA tensors only, got {q.device}")
+    B, Hh, S, D = q.shape
+    if D != (head_dim := build.source_int("flash_attention_bwd_d8", "D")):
+        raise ValueError(f"attention_bwd_d8: head_dim {D}, this kernel takes {head_dim}")
+    do = _checked_bwd_inputs(q, k, v, o, lse, do, "attention_bwd_d8")
+    fn = _entry("flash_attention_bwd_d8", "dsg_flash_attention_bwd_d8", 9, 24)
+    dq, dk, dv = (_heads_view(B, S, Hh, D, q.device) for _ in range(3))
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Hh, S, D,
+                   *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
+                   float(scale), _stream(q)), "attention_bwd_d8")
+    attention_bwd_d8.launches += 1
+    return dq, dk, dv
+
+
+attention_bwd_d8.launches = 0

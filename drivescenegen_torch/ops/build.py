@@ -35,7 +35,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 SOURCES = ("gn_silu_conv", "group_norm", "flash_attention", "flash_attention_d8",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "flash_attention_bwd_d8")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -99,12 +99,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def source_int(name: str, constant: str) -> int:
+def source_int(name: str, constant: str, required: bool = True):
     """The value of the line `constexpr int <constant> = <integer>;` in
-    csrc/<name>.cu. The wrappers read a kernel's shape limits here, so that
-    they check the values the C entry point checks, with no copy of them."""
+    csrc/<name>.cu (None when the source has no such line and `required` is
+    False). The wrappers read a kernel's shape limits here, so that they
+    check the values the C entry point checks, with no copy of them."""
     src = (CSRC_DIR / f"{name}.cu").read_text()
     found = re.findall(rf"^constexpr int {constant} = (\d+);", src, re.MULTILINE)
+    if not found and not required:
+        return None
     if len(found) != 1:
         raise RuntimeError(f"csrc/{name}.cu has {len(found)} lines 'constexpr int {constant} = N;'")
     return int(found[0])

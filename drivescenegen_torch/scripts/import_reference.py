@@ -19,7 +19,9 @@ attention_head_dim (8 when config.json names none, as the reference's
 does). The closing "sample with:" line adds --plain when the model is
 outside the CUDA kernels' limits (models/unet2d.py kernel_limit_errors),
 as narrower widths than the reference's are; the reference's own
-architecture (widths 64/128/256/512, head dim 8) runs every kernel.
+architecture (widths 64/128/256/512, head dim 8) runs every kernel, and
+its config.yaml, as the train CLI's --cfg_file, trains that architecture
+on them too (the head-dim-8 attention forward with lse and backward).
 Host work only: nothing runs on a device.
 """
 

@@ -28,7 +28,9 @@ A conditional model (cond_channels > 0) reads cond_channels +
 in_channels channels of each image, the conditioning first, and trains
 with cond-dropout; its eval samples are unconditional, as in the JAX
 package. --plain builds both models on PyTorch's library ops, for a model
-outside the kernels' limits (models/unet2d.py kernel_limit_errors).
+outside the kernels' limits (models/unet2d.py kernel_limit_errors). The
+import CLI's config.yaml (scripts/import_reference.py) trains
+DriveSceneGen's own architecture, head dim 8, on the kernels without it.
 
 The data reach the card one of three ways (batch_source). Raw PNG
 datasets are uint8 and normalized on the device. device_data "on", or

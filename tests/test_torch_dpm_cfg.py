@@ -521,13 +521,12 @@ def test_kernel_limits_name_every_breach_of_config1():
     """config1_map64_cpu's model section breaks the conv's channel limits
     and, through its f32 dtype, all three kernels; its stats shapes are
     within the stats kernel's limits, and its head dim of 8 within the
-    forward attention kernels' (head dim 8 has its own kernel), not the
-    backward's. The limits are those read from the .cu sources."""
+    attention kernels', forward and backward (head dim 8 has its own
+    kernel of each). The limits are those read from the .cu sources."""
     errors = kernel_limit_errors(ModelConfig(**CONFIG1))
     text = "\n".join(errors)
     assert "silu_conv3x3, gn_mul_add and attention take bfloat16" in text
     ck = build.source_int("gn_silu_conv", "CK")
-    d_bwd = build.source_int("flash_attention_bwd", "D")
     assert f"silu_conv3x3: the kernel takes C % {ck} == 0" in text
     assert build.source_int("flash_attention_d8", "D") == 8
     assert not any(e.startswith("attention:") for e in errors)
@@ -535,10 +534,9 @@ def test_kernel_limits_name_every_breach_of_config1():
     assert len(errors) == len(set(errors))
     training = kernel_limit_errors(ModelConfig(**CONFIG1), for_training=True)
     assert [e.split(":")[0] for e in training] == [
-        "the attention kernels take bfloat16 activations, got dtype float32",
-        "attention backward"]
-    assert f"the backward kernels take head_dim {d_bwd} and S % " in training[1]
-    assert "got D=8" in training[1]
+        "the attention kernels take bfloat16 activations, got dtype float32"]
+    assert build.source_int("flash_attention_bwd_d8", "D") == 8
+    assert not any(e.startswith("attention backward") for e in training)
 
 
 @pytest.mark.parametrize("overrides", [{}, CONFIG5], ids=["default", "config5"])

@@ -81,8 +81,9 @@ def _port_model(params, overrides=None):
     return model
 
 
-@pytest.mark.parametrize("overrides", [{}, {"attention_impl": "flash"}, {"split_skip_conv": True}],
-                         ids=["default", "flash", "split_skip_conv"])
+@pytest.mark.parametrize("overrides", [{}, {"attention_impl": "flash"}, {"split_skip_conv": True},
+                                       {"torch_pad_downsample": True}],
+                         ids=["default", "flash", "split_skip_conv", "torch_pad_downsample"])
 def test_loss_and_every_gradient_match_jax(overrides):
     kw = dict(TINY, **overrides)
     jmodel = JaxUNet2D(JaxModelConfig(**kw))
