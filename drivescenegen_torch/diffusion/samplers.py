@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from drivescenegen_torch.diffusion.schedule import DiffusionSchedule
+from drivescenegen_torch.utils import profiling
 
 NoiseSource = Union[None, torch.Tensor, Callable[[int], torch.Tensor]]
 
@@ -155,9 +156,10 @@ def _sample_loop(
     prev = ts[1:] + [-1]
     t_dev = timesteps.to(device)
     for i, (t, prev_t) in enumerate(zip(ts, prev)):
-        eps = denoise_fn(x, t_dev[i]).float()
-        z = _noise_at(noise, i, shape, device, generator) if needs_noise(t) else None
-        x = step_fn(x, eps, t, prev_t, z)
+        with profiling.annotate("sampler.step"):
+            eps = denoise_fn(x, t_dev[i]).float()
+            z = _noise_at(noise, i, shape, device, generator) if needs_noise(t) else None
+            x = step_fn(x, eps, t, prev_t, z)
     return x
 
 
@@ -262,13 +264,15 @@ def _dpmpp_loop(denoise_fn: Callable, schedule: DiffusionSchedule, shape,
     t_dev = coeffs["timesteps"].to(device)
     c_x, c_d, w_c, w_p = (coeffs[k] for k in ("c_x", "c_d", "w_c", "w_p"))
     for i in range(t_dev.numel()):
-        eps = denoise_fn(x, t_dev[i]).float()
-        x0 = schedule.pred_x0_from_eps(x, eps, t_dev[i])
-        x_next = c_x[i] * x + c_d[i] * (w_c[i] * x0 + w_p[i] * x0_prev)
-        if sde:
-            # One draw at every step, the last included (its c_n is 0).
-            x_next = x_next + coeffs["c_n"][i] * _noise_at(noise, i, shape, device, generator)
-        x, x0_prev = x_next, x0
+        with profiling.annotate("sampler.step"):
+            eps = denoise_fn(x, t_dev[i]).float()
+            x0 = schedule.pred_x0_from_eps(x, eps, t_dev[i])
+            x_next = c_x[i] * x + c_d[i] * (w_c[i] * x0 + w_p[i] * x0_prev)
+            if sde:
+                # One draw at every step, the last included (its c_n is 0).
+                z = _noise_at(noise, i, shape, device, generator)
+                x_next = x_next + coeffs["c_n"][i] * z
+            x, x0_prev = x_next, x0
     return x
 
 

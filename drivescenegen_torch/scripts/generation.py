@@ -59,6 +59,7 @@ from drivescenegen_torch.diffusion import (
 from drivescenegen_torch.models import UNet2D
 from drivescenegen_torch.models.convert import flax_to_torch, load_npz
 from drivescenegen_torch.parallel import make_mesh
+from drivescenegen_torch.utils import profiling
 from drivescenegen_torch.utils.logging import get_logger
 
 logger = get_logger("generation")
@@ -114,9 +115,13 @@ def rounded_batch(batch_size: int, n_data: int) -> int:
 
 
 def quantize(x: torch.Tensor) -> np.ndarray:
-    """[-1, 1] samples -> uint8 images, rounded (not truncated)."""
-    arr01 = np.clip(x.float().cpu().numpy() / 2 + 0.5, 0.0, 1.0)
-    return np.round(arr01 * 255).astype(np.uint8)
+    """[-1, 1] samples -> uint8 images, rounded (not truncated): the copy to
+    the host (span quantize.copy), then numpy's passes (quantize.host)."""
+    with profiling.annotate("quantize.copy"):
+        arr = x.float().cpu().numpy()
+    with profiling.annotate("quantize.host"):
+        arr01 = np.clip(arr / 2 + 0.5, 0.0, 1.0)
+        return np.round(arr01 * 255).astype(np.uint8)
 
 
 def cond_batch(files, num: int, batch_size: int, res: int, cond_channels: int, device):

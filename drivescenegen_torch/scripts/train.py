@@ -261,21 +261,24 @@ def batch_source(mode: str, dataset: RasterDataset, tcfg, mesh):
                     tail_bytes_per_step=k_str * sample_bytes)
 
         def next_batch():
-            pool_slots, _ = next(idx_a)
-            slots = torch.from_numpy(pool_slots[pool_rows].astype(np.int64)).to(device)
-            return torch.cat([data_dev[slots], next(tail_it)])
+            with profiling.annotate("feed.next_batch"):
+                pool_slots, _ = next(idx_a)
+                slots = torch.from_numpy(pool_slots[pool_rows].astype(np.int64)).to(device)
+                return torch.cat([data_dev[slots], next(tail_it)])
     elif mode == "resident":
         data_dev = dataset_to_device(dataset, device)
         idx_it = index_batches(len(dataset), B, seed=tcfg.seed)
 
         def next_batch():
-            return data_dev[torch.from_numpy(next(idx_it)[rows]).to(device)]
+            with profiling.annotate("feed.next_batch"):
+                return data_dev[torch.from_numpy(next(idx_it)[rows]).to(device)]
     else:
         it = prefetch_to_device(batch_iterator(dataset, B, seed=tcfg.seed, num_epochs=None),
                                 device, rows=rows)
 
         def next_batch():
-            return next(it)
+            with profiling.annotate("feed.next_batch"):
+                return next(it)
     return next_batch, info
 
 
@@ -411,8 +414,7 @@ def main(argv=None):
         if args.profile_steps and step_i == start_step + 1 and mesh.is_main:
             tracer.enter_context(profiling.trace(trace_dir))  # after the first step's warm-up
             tracing = True
-        with profiling.annotate(f"train_step_{step_i + 1}"):
-            state, metrics = step_fn(state, next_batch())
+        state, metrics = step_fn(state, next_batch())
         if tracing and step_i == start_step + args.profile_steps:
             tracer.close()
             tracing = False

@@ -57,7 +57,7 @@ from drivescenegen_torch.diffusion.cfg import apply_cond_dropout
 from drivescenegen_torch.diffusion.schedule import DiffusionSchedule
 from drivescenegen_torch.models.unet2d import DropoutMasks, UNet2D
 from drivescenegen_torch.parallel.mesh import Mesh, all_reduce_mean_
-from drivescenegen_torch.utils import prng
+from drivescenegen_torch.utils import prng, profiling
 
 
 @dataclass
@@ -167,12 +167,18 @@ def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], fl
     are both drawn and a given one is kept, so that every later draw keeps
     its place in the stream. The state is updated in place; metrics are
     loss (averaged over the data axis), grad_norm (before clipping; both
-    device tensors, read without a host sync) and lr."""
+    device tensors, read without a host sync) and lr. While a profiler
+    records, the step opens the spans train.step and, inside it,
+    train.forward, train.backward and train.update (utils/profiling.py)."""
     train_seed = prng.purpose_seed(cfg.seed, "train")
     ema_decay = np.float32(cfg.ema_decay)
 
     def train_step(state: TrainState, batch: torch.Tensor, noise=None, t=None, keep=None,
                    dropout_masks=None):
+        with profiling.annotate("train.step"):
+            return step(state, batch, noise, t, keep, dropout_masks)
+
+    def step(state: TrainState, batch: torch.Tensor, noise, t, keep, dropout_masks):
         model, opt = state.model, state.optimizer
         mcfg = model.cfg
         device = schedule.device
@@ -212,27 +218,30 @@ def make_train_step(schedule: DiffusionSchedule, lr_schedule: Callable[[int], fl
                        else DropoutMasks(mcfg.dropout, gen, batch=B * world, rows=rows))
 
         opt.zero_grad(set_to_none=True)
-        loss = diffusion_loss(model, schedule, target, noise, t, cond, dropout)
-        loss.backward()
-        params = [p for group in opt.param_groups for p in group["params"]]
-        grads = [p.grad for p in params]
-        loss = loss.detach()
-        all_reduce_mean_(grads + [loss.reshape(1)], mesh)
-        sharded_ids = {id(p) for n, p in model.named_parameters() if n in model.tp_plan}
-        norm = global_norm(grads, [id(p) in sharded_ids for p in params], mesh)
-        clip_by_global_norm_(grads, cfg.grad_clip_norm, norm)
-        lr = lr_schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        if ema_decay > 0 and state.ema_params is not None:
-            s = np.float32(state.step) + np.float32(1)
-            decay = min(ema_decay, (np.float32(1) + s) / (np.float32(10) + s))
-            ema = list(state.ema_params.values())
-            named = dict(model.named_parameters())
-            torch._foreach_mul_(ema, float(decay))
-            torch._foreach_add_(ema, [named[n].detach() for n in state.ema_params],
-                                alpha=float(np.float32(1) - decay))
+        with profiling.annotate("train.forward"):
+            loss = diffusion_loss(model, schedule, target, noise, t, cond, dropout)
+        with profiling.annotate("train.backward"):
+            loss.backward()
+        with profiling.annotate("train.update"):
+            params = [p for group in opt.param_groups for p in group["params"]]
+            grads = [p.grad for p in params]
+            loss = loss.detach()
+            all_reduce_mean_(grads + [loss.reshape(1)], mesh)
+            sharded_ids = {id(p) for n, p in model.named_parameters() if n in model.tp_plan}
+            norm = global_norm(grads, [id(p) in sharded_ids for p in params], mesh)
+            clip_by_global_norm_(grads, cfg.grad_clip_norm, norm)
+            lr = lr_schedule(state.step)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            if ema_decay > 0 and state.ema_params is not None:
+                s = np.float32(state.step) + np.float32(1)
+                decay = min(ema_decay, (np.float32(1) + s) / (np.float32(10) + s))
+                ema = list(state.ema_params.values())
+                named = dict(model.named_parameters())
+                torch._foreach_mul_(ema, float(decay))
+                torch._foreach_add_(ema, [named[n].detach() for n in state.ema_params],
+                                    alpha=float(np.float32(1) - decay))
         state.step += 1
         return state, {"loss": loss, "grad_norm": norm, "lr": lr}
 
