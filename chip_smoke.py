@@ -55,8 +55,12 @@ Phases, each printed as it runs; any failure exits non-zero:
                theirs, two runs bit-identical, times against the
                bound, the plain version and SDPA's backward, and TFLOP/s on
                the five products; one train step with kernels against one with
-               plain versions on the same weights, batch, noise and t; the
-               launch counts and ms of a run of steps, samples/s, the
+               plain versions on the same weights, batch, noise and t, the
+               kernel step calling the f32 GroupNorm composition at none of
+               its 45 GN+SiLU sites (stats, apply and GN backward kernels
+               launched 45 times each, in every train step of phases 7, 10,
+               14 and 17); the launch counts and ms of a run of steps,
+               samples/s, the
                device's idle share and peak memory; then the train CLI as a
                user runs it, on a seeded synthetic PNG corpus: ~30 steps,
                a resume, and a params.npz the generation CLI samples from
@@ -202,6 +206,18 @@ Phases, each printed as it runs; any failure exits non-zero:
                36, launches exact with its DDPM-750 eval samples), then
                the generation CLI's DDIM-50 at batch 8 from its export,
                launches gated at 2200 / 2250 / 50 / 50
+  18. gn bwd   the training arm's GroupNorm+SiLU (ops.GroupNormSiLUFunction):
+               the stats kernel with its mean/rstd output (mul and add
+               bit-identical to the launch without it) and the backward
+               (csrc/group_norm.cu, two launches a call) against their plain
+               versions at ragged shapes (odd sizes, 3 channels a group, 16
+               groups, a dy in another layout) and at every (H, C) of the
+               45 sites at batch 14, two calls bit-identical; the backward
+               timed cold against its byte bound (10 bytes an element),
+               plain, and PyTorch's autograd of F.group_norm + F.silu; warm
+               too at [14, 256, 256, 64], [14, 256, 256, 192],
+               [14, 128, 128, 384] and [14, 32, 32, 1024]; the forward
+               beside the composition's; one train step's sums
 
 About 770-950 s on an H100, builds included; phase 14 about 215-295 s
 of it; phase 16 about 35 s; phase 17 about 90 s. It prints each phase's
@@ -406,7 +422,7 @@ def device_kernels(fn, n: int = 1, tries: int = 3):
                 fn()
             torch.cuda.synchronize()
         rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU]
+                if e.device_type != DeviceType.CPU and not getattr(e, "is_user_annotation", False)]
         if rows:
             return rows
         print(f"profiler: session {attempt + 1} of {tries} recorded no device event")
@@ -476,8 +492,9 @@ def profile_device(fn, n: int = 3, label: str = "forward", top: int = 12):
     rows = []
     for e in prof.key_averages():
         # Device rows only: a CPU op (aten::add) also carries the device
-        # time of the kernels it launched, which would count them twice.
-        if e.device_type == DeviceType.CPU:
+        # time of the kernels it launched, which would count them twice; so
+        # does a program span's range on the device's timeline.
+        if e.device_type == DeviceType.CPU or getattr(e, "is_user_annotation", False):
             continue
         dev_us = e.self_device_time_total
         if dev_us > 0:
@@ -833,7 +850,7 @@ def phase_stage2(here: str, work: str, model_dir: str, q_ddim, ddim_rate: float)
     want = {"silu_conv3x3": 44 * STEPS * n_batches, "gn_mul_add": 45 * STEPS * n_batches,
             "silu_affine": STEPS * n_batches, "attention": STEPS * n_batches,
             "attention_bwd_prep": 0, "attention_bwd_main": 0, "attention_bwd_dq": 0,
-            "attention_bwd_d8": 0}
+            "attention_bwd_d8": 0, "group_norm_silu_bwd": 0}
     check(counts == want, f"end-to-end launch counts {counts} != {want}")
     check(stats["n_images"] == E2E_SCENES and
           stats["n_ok"] + stats["n_rejected"] + stats["n_failed"] == E2E_SCENES,
@@ -1663,6 +1680,7 @@ def phase_tp_train(here: str, work: str, inputs7: str) -> dict:
     from drivescenegen_torch.config import ModelConfig
     from drivescenegen_torch.diffusion import make_schedule
     from drivescenegen_torch.models import UNet2D
+    from drivescenegen_torch.models.unet2d import gn_mul_add_shapes
     from drivescenegen_torch.scripts import generation
     from drivescenegen_torch.training import create_optimizer, init_train_state, make_train_step
     from drivescenegen_torch.training.checkpoint import restore_checkpoint
@@ -1746,9 +1764,10 @@ def phase_tp_train(here: str, work: str, inputs7: str) -> dict:
               f"of {diff.numel()} values within 1e-7; cosine of the two runs' moves {upd:.6f}")
         check(diff.max().item() <= bound, f"the TP run's {name} is {diff.max().item()} away")
         check(upd >= TRAIN_COS_MIN, f"the TP run's {name} moved along {upd} of the one process's")
-    want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
+    n_gn = sum(gn_mul_add_shapes(mcfg).values())  # norm2 on its shard, groups / tp
+    want1 = {"silu_conv3x3": 0, "gn_mul_add": n_gn, "silu_affine": n_gn, "attention": 1,
              "attention_bwd_prep": 1, "attention_bwd_main": 1, "attention_bwd_dq": 1,
-             "attention_bwd_d8": 0}
+             "attention_bwd_d8": 0, "group_norm_silu_bwd": n_gn}
     for r in ranks:
         check(r["launches_step1"] == want1, f"rank {r['rank']} launched {r['launches_step1']} "
                                             f"in one TP step, not {want1}")
@@ -2160,7 +2179,8 @@ def phase_train8(here: str, work: str, rows: dict, train_path, tcfg, d8_numbers:
     from drivescenegen_torch import ops
     from drivescenegen_torch.config import load_config
     from drivescenegen_torch.models.convert import flax_to_torch, load_npz
-    from drivescenegen_torch.models.unet2d import kernel_limit_errors, mid_attention_shape
+    from drivescenegen_torch.models.unet2d import (gn_mul_add_shapes, kernel_limit_errors,
+                                                   mid_attention_shape)
     from drivescenegen_torch.scripts import generation
     from drivescenegen_torch.training.checkpoint import latest_step
 
@@ -2174,6 +2194,7 @@ def phase_train8(here: str, work: str, rows: dict, train_path, tcfg, d8_numbers:
     cfg_yaml = os.path.join(imported8, "config.yaml")
     icfg8 = load_config(cfg_yaml).model
     heads, S, D = mid_attention_shape(icfg8)
+    n_gn = sum(gn_mul_add_shapes(icfg8).values())  # the training arm's GN sites
     TB = tcfg.batch_size
     check((heads, S, D) == (64, 1024, 8) and kernel_limit_errors(icfg8, for_training=True) == [],
           f"the imported model trains at {(heads, S, D)}, limits "
@@ -2314,6 +2335,12 @@ def phase_train8(here: str, work: str, rows: dict, train_path, tcfg, d8_numbers:
         r_.d["launches_by_path"][name] = tr["counts"][k_]
     row.d["launches"] = tr["counts"]["attention_bwd_d8"]
     row.d["launches_per_train_step"] = tr["counts"]["attention_bwd_d8"] // TRAIN_STEPS
+    gn_row = rows["group_norm_silu_bwd"]
+    gn_row.d["launches"] = tr["counts"]["group_norm_silu_bwd"]
+    gn_row.d["launches_per_train_step"] = tr["counts"]["group_norm_silu_bwd"] // TRAIN_STEPS
+    check(gn_row.d["launches_per_train_step"] == n_gn == tr["counts"]["gn_mul_add"] // TRAIN_STEPS,
+          f"phase 17's train steps launched the GN backward {tr['counts']['group_norm_silu_bwd']} "
+          f"and the stats {tr['counts']['gn_mul_add']} times, not {n_gn} each a step")
     out["train_step"] = {k_: tr[k_] for k_ in ("med_ms", "step_ms", "samples_per_s", "idle",
                                                "peak_gb", "counts")}
     del weights, batch, noise, t_
@@ -2335,10 +2362,15 @@ def phase_train8(here: str, work: str, rows: dict, train_path, tcfg, d8_numbers:
         fwd_src = logged_launches(log, "attention forward launches by source")
         trained = steps - (CLI_STEPS if extra else 0)
         samples = log.count(": sample -> ")
-        want = {"silu_conv3x3": 44 * DDPM_STEPS * samples, "gn_mul_add": 45 * DDPM_STEPS * samples,
-                "silu_affine": DDPM_STEPS * samples, "attention": trained + DDPM_STEPS * samples,
+        # Each train step launches the stats, apply and backward GN kernels
+        # at every GN site of the training arm (n_gn), each eval forward the
+        # sampling arm's kernels.
+        want = {"silu_conv3x3": 44 * DDPM_STEPS * samples,
+                "gn_mul_add": 45 * DDPM_STEPS * samples + n_gn * trained,
+                "silu_affine": DDPM_STEPS * samples + n_gn * trained,
+                "attention": trained + DDPM_STEPS * samples,
                 "attention_bwd_prep": 0, "attention_bwd_main": 0, "attention_bwd_dq": 0,
-                "attention_bwd_d8": trained}
+                "attention_bwd_d8": trained, "group_norm_silu_bwd": n_gn * trained}
         check(launched == want, f"train CLI (head dim 8) launches {launched} != {want}")
         check(fwd_src == {"flash_attention": 0, "flash_attention_d8": want["attention"]},
               f"train CLI (head dim 8) forward launches by source: {fwd_src}")
@@ -2385,6 +2417,147 @@ def phase_train8(here: str, work: str, rows: dict, train_path, tcfg, d8_numbers:
     out["cli"] = cli
     out["phase_s"] = time.perf_counter() - t17
     print(f"phase 17: {out['phase_s']:.1f} s")
+    return out
+
+
+# Phase 18: the training arm's GroupNorm+SiLU on the kernels, at the train
+# batch of 14 and 32 groups: the widest sites and the narrowest first,
+# then every other (H, C) of the training arm's 45 sites; ragged shapes:
+# odd sizes, 3 channels a group, 16 groups (tp 2), a dy in another layout.
+GN_BWD_MAIN = ((256, 64), (256, 192), (128, 384), (32, 1024))
+GN_BWD_RAGGED = ((3, 7, 9, 96, 32, False), (2, 5, 3, 24, 8, False), (14, 64, 64, 128, 16, False),
+                 (3, 16, 16, 64, 32, True))
+
+
+def phase_gn_backward(rows: dict, batch: int, smi: str) -> dict:
+    """Phase 18. At each shape: the stats kernel with its mean/rstd output
+    (mul and add bit-identical to the launch without it, mean and rstd
+    against the plain statistics), the backward (csrc/group_norm.cu, two
+    launches a call) against reference_group_norm_silu_bwd, two calls
+    bit-identical. Timed at every (H, C) of the training arm's sites: the
+    backward cold (10 bytes an element: x and dy read twice, dx written),
+    plain, and PyTorch's autograd of F.group_norm + F.silu (the f32 NCHW
+    composition the training arm ran before) as the library; at the main
+    shapes also warm, and the forward (stats, apply: 6 bytes an element)
+    beside the composition's forward. Fills rows["group_norm_silu_bwd"]
+    with the sums of one train step; returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from drivescenegen_torch import ops
+    from drivescenegen_torch.config import ModelConfig
+    from drivescenegen_torch.models.unet2d import gn_mul_add_shapes
+
+    phase("18 gn backward: the training arm's GroupNorm+SiLU forward (statistics saved) and "
+          "backward kernels against their plain versions, timed at every train shape")
+    t18 = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    eps = 1e-6
+    out = {"card": smi, "shapes": {}}
+
+    def err_of(got, ref):
+        return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+
+    def make(B, H, W, C, dy_nchw=False):
+        x = (torch.randn(B, H, W, C, generator=gen, device=dev) * 1.5 + 0.3).bfloat16()
+        if dy_nchw:
+            dy = torch.randn(B, C, H, W, generator=gen, device=dev).bfloat16().permute(0, 2, 3, 1)
+        else:
+            dy = torch.randn(B, H, W, C, generator=gen, device=dev).bfloat16()
+        dy = dy * 0.01
+        sc = torch.randn(C, generator=gen, device=dev) * 0.2 + 1
+        bi = torch.randn(C, generator=gen, device=dev) * 0.1
+        return x, dy, sc, bi
+
+    def checked(x, dy, sc, bi, g, lab):
+        mul, add = ops.gn_mul_add(x, sc, bi, g, eps)
+        mul2, add2, mean, rstd = ops.gn_mul_add(x, sc, bi, g, eps, with_stats=True)
+        check(torch.equal(mul, mul2) and torch.equal(add, add2),
+              f"gn_mul_add {lab}: mul and add differ when it writes the statistics")
+        rm, rr = ops.reference_gn_stats(x, g, eps)
+        e_m = (mean - rm).abs().max().item()
+        e_r = ((rstd - rr).abs() / rr).max().item()
+        check(e_m <= F32_TOL * max(rm.abs().max().item(), 1.0) and e_r <= F32_TOL,
+              f"gn_mul_add {lab} statistics: mean err {e_m}, rstd rel err {e_r}")
+        got = ops.group_norm_silu_bwd(dy, x, mean, rstd, sc, bi, g)
+        again = ops.group_norm_silu_bwd(dy, x, mean, rstd, sc, bi, g)
+        ref = ops.reference_group_norm_silu_bwd(dy, x, mean, rstd, sc, bi, g)
+        errs = [err_of(a_, b_) for a_, b_ in zip(got, ref)]
+        check(errs[0][0] <= BF16_TOL * errs[0][1], f"group_norm_silu_bwd {lab} dx: {errs[0]}")
+        for name, (e, m) in zip(("dscale", "dbias"), errs[1:]):
+            check(e <= F32_TOL * max(m, 1.0), f"group_norm_silu_bwd {lab} {name}: {e} vs max {m}")
+        check(all(torch.equal(a_, b_) for a_, b_ in zip(got, again)),
+              f"group_norm_silu_bwd {lab}: two calls differ")
+        print(f"group_norm_silu_bwd {lab}: dx err {errs[0][0]:.3g} (max {errs[0][1]:.3g}), "
+              f"dscale err {errs[1][0]:.3g} (max {errs[1][1]:.3g}), dbias err {errs[2][0]:.3g} "
+              f"(max {errs[2][1]:.3g}); statistics mean err {e_m:.3g}, rstd rel {e_r:.3g}; two "
+              f"calls bit-identical")
+        return mean, rstd, errs
+
+    for B, H, W, C, g, dy_nchw in GN_BWD_RAGGED:
+        x, dy, sc, bi = make(B, H, W, C, dy_nchw)
+        checked(x, dy, sc, bi, g, f"[{B},{H},{W},{C}] G{g} (ragged"
+                                  f"{', dy strides ' + str(tuple(dy.stride())) if dy_nchw else ''})")
+        del x, dy
+
+    site_shapes = gn_mul_add_shapes(ModelConfig())
+    check(sum(site_shapes.values()) == 45, f"the training arm's GN sites: {site_shapes}")
+    main_first = [s_ for s_ in GN_BWD_MAIN if s_ in site_shapes]
+    order = main_first + sorted(s_ for s_ in site_shapes if s_ not in main_first)
+    row = rows["group_norm_silu_bwd"]
+    step = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, library_ms=0.0, fwd_ms=0.0, fwd_bound_ms=0.0)
+    G = 32
+    for H, C in order:
+        n_sites = site_shapes[(H, C)]
+        lab = f"[{batch},{H},{H},{C}]"
+        x, dy, sc, bi = make(batch, H, H, C)
+        mean, rstd, errs = checked(x, dy, sc, bi, G, lab)
+        n = x.numel()
+        bnd = bound_ms(10 * n, 0)
+        ms, copies = time_cold_ms(
+            lambda dy_, x_: ops.group_norm_silu_bwd(dy_, x_, mean, rstd, sc, bi, G), (dy, x), bnd,
+            10 * n)
+        plain = time_ms(lambda: ops.reference_group_norm_silu_bwd(dy, x, mean, rstd, sc, bi, G))
+        xr, w, b = x.detach().requires_grad_(), sc.detach().requires_grad_(), bi.detach().requires_grad_()
+        y = F.silu(F.group_norm(xr.permute(0, 3, 1, 2).float(), G, w, b, eps=eps)).to(
+            torch.bfloat16).permute(0, 2, 3, 1)
+        lib = device_ms(lambda: torch.autograd.grad(y, (xr, w, b), dy, retain_graph=True), n=5)
+        fbnd = bound_ms(6 * n, 0)
+        fwd, _ = time_cold_ms(
+            lambda x_: ops.silu_affine(x_, *ops.gn_mul_add(x_, sc, bi, G, eps, with_stats=True)[:2]),
+            (x,), fbnd, 6 * n)
+        entry = dict(sites=n_sites, ms=ms, cold_copies=copies, bound_ms=bnd[0], bound_by=bnd[1],
+                     plain_ms=plain, library_ms=lib, fwd_ms=fwd, fwd_bound_ms=fbnd[0],
+                     max_abs_err=errs[0][0], max_abs=errs[0][1],
+                     dscale_err=errs[1][0], dbias_err=errs[2][0])
+        line = (f"group_norm_silu_bwd {lab} (x{n_sites} a step): {ms:.4f} ms cold "
+                f"({copies} input sets), {100 * bnd[0] / ms:.1f}% of the bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}), plain {plain:.4f} ms, autograd of F.group_norm + F.silu {lib:.4f} ms; "
+                f"forward (stats with mean/rstd, apply) {fwd:.4f} ms, "
+                f"{100 * fbnd[0] / fwd:.1f}% of {fbnd[0]:.4f}")
+        if (H, C) in GN_BWD_MAIN:
+            warm = time_ms(lambda: ops.group_norm_silu_bwd(dy, x, mean, rstd, sc, bi, G))
+            flib = device_ms(lambda: F.silu(F.group_norm(
+                x.permute(0, 3, 1, 2).float(), G, sc, bi, eps=eps)).to(torch.bfloat16).permute(
+                    0, 2, 3, 1).contiguous(), n=5)
+            entry.update(warm_ms=warm, fwd_library_ms=flib)
+            line += f"; warm {warm:.4f} ms; the composition's forward {flib:.4f} ms"
+        print(line + f"  ({smi})", flush=True)
+        row.add(n_sites, errs[0][0], errs[0][1], ms, plain, bnd, lib)
+        for k_ in ("ms", "bound_ms", "plain_ms", "library_ms", "fwd_ms", "fwd_bound_ms"):
+            step[k_] += n_sites * entry[k_]
+        out["shapes"][lab] = entry
+        del x, dy, xr, w, b, y, mean, rstd
+        torch.cuda.empty_cache()
+    print(f"one train step's 45 GN+SiLU sites at batch {batch}: backward {step['ms']:.3f} ms "
+          f"({100 * step['bound_ms'] / step['ms']:.1f}% of {step['bound_ms']:.3f}), plain "
+          f"{step['plain_ms']:.3f}, the composition's backward {step['library_ms']:.3f}; forward "
+          f"{step['fwd_ms']:.3f} ms ({100 * step['fwd_bound_ms'] / step['fwd_ms']:.1f}% of "
+          f"{step['fwd_bound_ms']:.3f})  ({smi})")
+    out["train_step_sums"] = step
+    out["phase_s"] = time.perf_counter() - t18
+    print(f"phase 18: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2791,7 +2964,7 @@ def main() -> int:
     print(f"DDIM-{STEPS}: {dt:.3f} s, {B / dt:.4f} scenes/s; launches {counts}")
     want = {"silu_conv3x3": 44 * STEPS, "gn_mul_add": 45 * STEPS, "silu_affine": STEPS,
             "attention": STEPS, "attention_bwd_prep": 0, "attention_bwd_main": 0,
-            "attention_bwd_dq": 0, "attention_bwd_d8": 0}
+            "attention_bwd_dq": 0, "attention_bwd_d8": 0, "group_norm_silu_bwd": 0}
     check(counts == want, f"launch counts {counts} != {want}")
     # The eager loop launches every kernel from the host, whose cores the
     # machine shares: two more runs show the spread, and the CUDA-graph
@@ -3012,6 +3185,13 @@ def main() -> int:
         "attention_bwd_d8", "cuda", "drivescenegen_torch/csrc/flash_attention_bwd_d8.cu",
         f"{lib_file}:941")
     rows["attention_bwd_d8"].d["also_replaces"] = f"{lib_file}:1287 and :273 (dQ, di)"
+    # The training arm's GroupNorm+SiLU backward: measured in phase 18, its
+    # launches recorded by every path from here.
+    rows["group_norm_silu_bwd"] = KernelRow(
+        "group_norm_silu_bwd", "cuda", "drivescenegen_torch/csrc/group_norm.cu",
+        "none: the JAX training path differentiates jnp (reference_group_norm_silu, "
+        "drivescenegen_tpu/ops/pallas/group_norm.py:195, from drivescenegen_tpu/models/"
+        "unet2d.py:97)")
     rows["attention_bwd_prep"].add(1, e_di, m_di, prep_ms, t7["di_plain_ms"], bnd_prep,
                                    t7["di_lib_ms"])
     # plain_ms and library_ms of the main row are the whole backward's: no
@@ -3081,24 +3261,49 @@ def main() -> int:
             opt, lr_fn = create_optimizer(tcfg, 1000, m.parameters())
             return init_train_state(m, opt, ema=True), make_train_step(schedule, lr_fn, tcfg)
 
+        # Calls of the f32 composition at the training arm's GN sites:
+        # F.group_norm (the attention block's own GN calls it in both arms)
+        # and the Function's CPU forward, which CUDA must never reach.
+        import torch.nn.functional as F_
+        from drivescenegen_torch.ops import group_norm as gn_module
+        calls = Counter()
+
+        def counted(mod, attr):
+            inner = getattr(mod, attr)
+
+            def wrapper(*a, **k):
+                calls[attr] += 1
+                return inner(*a, **k)
+            return inner, wrapper
+
         results = {}
         for plain in (False, True):
             st, step = train_setup(plain)
             ops.reset_launch_counts()
-            st, m = step(st, batch, noise, t_, keep)
-            torch.cuda.synchronize()
+            calls.clear()
+            patched = [(mod, attr, *counted(mod, attr)) for mod, attr in
+                       ((F_, "group_norm"), (gn_module, "composition_group_norm_silu"))]
+            for mod, attr, _, wrapper in patched:
+                setattr(mod, attr, wrapper)
+            try:
+                st, m = step(st, batch, noise, t_, keep)
+                torch.cuda.synchronize()
+            finally:
+                for mod, attr, inner, _ in patched:
+                    setattr(mod, attr, inner)
             counts1 = ops.launch_counts()
+            calls1 = dict(calls)
             named = list(st.model.named_parameters())
             missing = [n for n, p in named if p.grad is None or not bool(p.grad.any())]
             check(not missing, f"{label} train step (plain={plain}): no gradient for {missing[:5]}")
             flat = torch.cat([p.grad.float().reshape(-1) for _, p in named])
-            results[plain] = (m["loss"].item(), m["grad_norm"].item(), flat, counts1)
+            results[plain] = (m["loss"].item(), m["grad_norm"].item(), flat, counts1, calls1)
             if not plain:
                 kstate, kstep = st, step
             else:
                 del st, step, named, flat
         del weights
-        (lk, gk, fk, ck), (lp, gp, fp, cp) = results[False], results[True]
+        (lk, gk, fk, ck, callk), (lp, gp, fp, cp, callp) = results[False], results[True]
         cos = torch.nn.functional.cosine_similarity(fk, fp, dim=0).item()
         print(f"{label} train step kernels vs plain: loss {lk:.6f} vs {lp:.6f} (rel "
               f"{abs(lk - lp) / lp:.2e}, tol {TRAIN_LOSS_TOL}), grad_norm {gk:.6f} vs {gp:.6f} "
@@ -3109,11 +3314,22 @@ def main() -> int:
         check(cos >= TRAIN_COS_MIN, f"{label} train step gradient cosine {cos}")
         head_dim = mid_attention_shape(mcfg)[2]
         d8 = int(head_dim == 8)
-        want1 = {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0, "attention": 1,
+        # The GN+SiLU of every ResnetBlock's norm1 and norm2 and of norm_out:
+        # the stats kernel (with mean and rstd), the apply kernel and the
+        # backward once each a site, 45 at the default widths.
+        n_gn = sum(gn_mul_add_shapes(mcfg).values())
+        want1 = {"silu_conv3x3": 0, "gn_mul_add": n_gn, "silu_affine": n_gn, "attention": 1,
                  "attention_bwd_prep": 1 - d8, "attention_bwd_main": 1 - d8,
-                 "attention_bwd_dq": 1 - d8, "attention_bwd_d8": d8}
+                 "attention_bwd_dq": 1 - d8, "attention_bwd_d8": d8,
+                 "group_norm_silu_bwd": n_gn}
         check(ck == want1, f"launches in one kernel train step {ck} != {want1}")
         check(set(cp.values()) == {0}, f"the plain step launched kernels: {cp}")
+        want_k = {"group_norm": 1}  # the attention block's GN alone
+        want_p = {"group_norm": n_gn + 1}
+        print(f"{label}: composition calls in one step, kernels {callk}, plain {callp}; "
+              f"launches {ck}")
+        check(callk == want_k, f"{label}: the kernel step called the composition {callk}")
+        check(callp == want_p, f"{label}: the plain step's composition calls {callp} != {want_p}")
         del results, fk, fp
         torch.cuda.empty_cache()
 
@@ -3546,6 +3762,9 @@ def main() -> int:
     # --------------------------------------------------------------- 17
     train8_numbers = phase_train8(here, work, rows, train_path, tcfg, d8_numbers, tr, smi)
 
+    # --------------------------------------------------------------- 18
+    gn_bwd_numbers = phase_gn_backward(rows, tcfg.batch_size, smi)
+
     seconds = phase_seconds()
     print(f"seconds by phase: {seconds}, {time.perf_counter() - t_main:.1f} s in all")
     print(json.dumps({"summary": {"forward_ms": fwd_ms, "forward_plain_ms": fwd_plain_ms,
@@ -3576,6 +3795,7 @@ def main() -> int:
                                   "import_eval": import_eval_numbers,
                                   "attention_d8": d8_numbers,
                                   "train_head_dim8": train8_numbers,
+                                  "gn_backward": gn_bwd_numbers,
                                   "script_s": time.perf_counter() - t_main,
                                   "phase_s": seconds,
                                   "card": smi}}))

@@ -25,14 +25,21 @@ constructor checks every kernel call a forward will make against those
 limits (kernel_limit_errors) and raises there, naming each broken limit
 and plain=True; nothing switches to the plain versions on its own.
 
-`for_training=True` is the arm the train step differentiates. The GN+SiLU
-kernels have no backward, in the JAX package either (its config.py:79-80),
-so this arm runs every GN+SiLU+conv pair and norm_out as the composition
-JAX trains with (drivescenegen_tpu/models/unet2d.py:224-227, :249-254):
-GroupNorm in f32, SiLU, a cast, the conv. The attention runs its kernel
-forward and backward (ops.AttentionFunction). The arm is a constructor
-argument, not nn.Module.training, which defaults to True and would turn
-the sampling kernels off unasked.
+`for_training=True` is the arm the train step differentiates. The
+sampling arm's fused GN+SiLU+conv kernel has no backward, in the JAX
+package either (its config.py:79-80), so this arm runs every GN+SiLU
+(each ResnetBlock's norm1 and norm2, and norm_out) unfused, then the conv,
+as JAX trains (drivescenegen_tpu/models/unet2d.py:224-227, :249-254).
+Its GN+SiLU is ops.GroupNormSiLUFunction over NHWC bf16
+(group_norm_silu_nhwc): on CUDA the stats and apply kernels forward and
+a backward kernel, which JAX has no counterpart of (it differentiates
+jnp); on CPU the f32 composition (GroupNorm in f32, SiLU, a cast) and a
+plain backward; with plain=True that composition under autograd on any
+device. Statistics, scale and bias and their gradients stay f32,
+activations and dx bf16. The attention runs its kernel forward and
+backward (ops.AttentionFunction). The arm is a constructor argument, not
+nn.Module.training, which defaults to True and would turn the sampling
+kernels off unasked.
 
 Dropout (cfg.dropout > 0) acts in the training arm only, between each
 ResnetBlock's norm2+SiLU and conv2, as x / keep where its keep mask is set
@@ -167,11 +174,16 @@ def conv_module(x, conv: Conv2d, stride: int = 1, pad=None):
     return conv_nhwc(x, conv.cast("weight", x.dtype), conv.cast("bias", x.dtype), stride, pad)
 
 
-def group_norm_silu_nhwc(x, norm: Norm, groups: int):
+def group_norm_silu_nhwc(x, norm: Norm, groups: int, plain: bool = False):
     """silu(GroupNorm(x)) over NHWC x, the norm in f32, returned in x's
-    dtype: the composition the training arm differentiates."""
-    h = F.group_norm(x.permute(0, 3, 1, 2).float(), groups, norm.weight, norm.bias, eps=GN_EPS)
-    return F.silu(h).to(x.dtype).permute(0, 2, 3, 1)
+    dtype: what the training arm differentiates, ops.GroupNormSiLUFunction
+    (kernels forward and backward on CUDA, returned NHWC-contiguous).
+    plain=True: the f32 composition under autograd."""
+    if plain:
+        h = F.group_norm(x.permute(0, 3, 1, 2).float(), groups, norm.weight, norm.bias,
+                         eps=GN_EPS)
+        return F.silu(h).to(x.dtype).permute(0, 2, 3, 1)
+    return ops.GroupNormSiLUFunction.apply(x.contiguous(), norm.weight, norm.bias, groups, GN_EPS)
 
 
 class DropoutMasks:
@@ -262,7 +274,7 @@ class ResnetBlock(nn.Module):
 
     def _gn_conv(self, x, norm: Norm, conv: Conv2d):
         if self.for_training:
-            return conv_module(group_norm_silu_nhwc(x, norm, self.groups), conv)
+            return conv_module(group_norm_silu_nhwc(x, norm, self.groups, self.plain), conv)
         fn = ops.reference_gn_silu_conv3x3 if self.plain else ops.gn_silu_conv3x3
         return fn(x.contiguous(), norm.weight, norm.bias, conv.cast("weight", x.dtype),
                   conv.bias, self.groups, GN_EPS)
@@ -282,7 +294,7 @@ class ResnetBlock(nn.Module):
                  + self.conv1.cast("bias", x.dtype))
         h = h + self.time_proj(F.silu(temb))[:, None, None, :]
         if self.for_training and dropout is not None:
-            h = dropout.apply(group_norm_silu_nhwc(h, self.norm2, self.groups))
+            h = dropout.apply(group_norm_silu_nhwc(h, self.norm2, self.groups, self.plain))
             h = conv_module(h, self.conv2)
         else:
             h = self._gn_conv(h, self.norm2, self.conv2)
@@ -308,7 +320,7 @@ class ResnetBlock(nn.Module):
         tp, dt = self.tp, x.dtype
         parts = (x,) if skip is None else (x, skip)
         if skip is None:
-            hn = (group_norm_silu_nhwc(x, self.norm1, self.groups),)
+            hn = (group_norm_silu_nhwc(x, self.norm1, self.groups, self.plain),)
         else:
             hn = ops.reference_group_norm_silu_multi(parts, self.norm1.weight, self.norm1.bias,
                                                      self.groups, GN_EPS)
@@ -322,7 +334,7 @@ class ResnetBlock(nn.Module):
             h = conv_nhwc(part, w[:, off:off + part.shape[-1]], None) + h
             off += part.shape[-1]
         h = h + self.time_proj(F.silu(temb))[:, None, None, :]
-        h = group_norm_silu_nhwc(h, self.norm2, self.groups // tp.size)
+        h = group_norm_silu_nhwc(h, self.norm2, self.groups // tp.size, self.plain)
         if dropout is not None:
             n = h.shape[-1]
             h = dropout.apply(h, slice(tp.index * n, (tp.index + 1) * n), n * tp.size)
@@ -477,24 +489,35 @@ def kernel_limit_errors(cfg: ModelConfig, for_training: bool = False, model: int
     the kernels take every call. The sampling arm runs all four forward
     kernels at the shapes conv3x3_shapes, gn_mul_add_shapes and
     mid_attention_shape list; the training arm (for_training=True) runs
-    only the attention, forward and backward, at the heads of a model axis
-    of `model` (mid_attention_shape). The forward and backward kernels
-    each take head dim 64 and 8, so a model at diffusers' default head dim
-    of 8 samples and trains with the kernels. The limits are the wrappers'
-    own predicates, read from the kernel sources (ops/build.py
-    source_int)."""
+    the attention, forward and backward, at the heads of a model axis of
+    `model` (mid_attention_shape), and the GroupNorm stats kernel and its
+    backward at gn_mul_add_shapes's widths (norm2 of a block sharded over
+    `model` at width / model in groups / model, wherever both divide).
+    The forward and backward attention kernels each take head dim 64 and
+    8, so a model at diffusers' default head dim of 8 samples and trains
+    with the kernels. The limits are the wrappers' own predicates, read
+    from the kernel sources (ops/build.py source_int)."""
     errors = []
-    kernels = "the attention kernels" if for_training else "silu_conv3x3, gn_mul_add and attention"
+    kernels = ("the attention and GroupNorm kernels" if for_training
+               else "silu_conv3x3, gn_mul_add and attention")
     if cfg.dtype != "bfloat16":
         errors.append(f"{kernels} take bfloat16 activations, got dtype {cfg.dtype}")
     heads, S, D = mid_attention_shape(cfg, model)
+    groups = cfg.norm_num_groups
     checks = [("attention", attention_shape_error(S, D))]
     if for_training:
         checks.append(("attention backward", attention_bwd_shape_error(S, D)))
+        widths = {(C, groups) for _, C in gn_mul_add_shapes(cfg)}
+        if model > 1 and groups % model == 0:
+            widths |= {(Co // model, groups // model) for _, _, Co in conv3x3_shapes(cfg)
+                       if Co % model == 0}
+        for C, g in sorted(widths):
+            why = stats_shape_error(C, g)
+            checks += [("gn_mul_add", why), ("group_norm_silu_bwd", why)]
     else:
         checks += [("silu_conv3x3", conv_shape_error(C, Co))
                    for _, C, Co in sorted(conv3x3_shapes(cfg))]
-        checks += [("gn_mul_add", stats_shape_error(C, cfg.norm_num_groups))
+        checks += [("gn_mul_add", stats_shape_error(C, groups))
                    for _, C in sorted(gn_mul_add_shapes(cfg))]
     for kernel, why in checks:
         if why and f"{kernel}: {why}" not in errors:
@@ -645,7 +668,7 @@ class UNet2D(nn.Module):
                 h = getattr(self, f"up_{i}_upsample")(h)
 
         if self.for_training:
-            h = group_norm_silu_nhwc(h, self.norm_out, cfg.norm_num_groups)
+            h = group_norm_silu_nhwc(h, self.norm_out, cfg.norm_num_groups, self.plain)
         else:
             gn = ops.reference_group_norm_silu if self.plain else ops.group_norm_silu
             h = gn(h.contiguous(), self.norm_out.weight, self.norm_out.bias, cfg.norm_num_groups,

@@ -27,9 +27,14 @@ from drivescenegen_torch.ops.gn_silu_conv import (  # noqa: F401
     silu_conv3x3,
 )
 from drivescenegen_torch.ops.group_norm import (  # noqa: F401
+    GroupNormSiLUFunction,
+    composition_group_norm_silu,
     gn_mul_add,
     group_norm_silu,
+    group_norm_silu_bwd,
     reference_gn_mul_add,
+    reference_gn_stats,
+    reference_group_norm_silu_bwd,
     reference_group_norm_silu,
     reference_group_norm_silu_multi,
     reference_silu_affine,
@@ -37,10 +42,11 @@ from drivescenegen_torch.ops.group_norm import (  # noqa: F401
 )
 
 # Every kernel wrapper, for counting launches: the sampling path's four,
-# then the attention backward's (the training path): three at head dim 64,
-# one at head dim 8.
+# then the training path's: the attention backward's (three at head dim
+# 64, one at head dim 8) and the GroupNorm+SiLU backward (the training arm
+# launches gn_mul_add and silu_affine at each of its GN sites too).
 KERNEL_WRAPPERS = (silu_conv3x3, gn_mul_add, silu_affine, attention, attention_bwd_prep,
-                   attention_bwd_main, attention_bwd_dq, attention_bwd_d8)
+                   attention_bwd_main, attention_bwd_dq, attention_bwd_d8, group_norm_silu_bwd)
 
 
 def reset_launch_counts() -> None:

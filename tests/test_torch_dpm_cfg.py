@@ -534,7 +534,7 @@ def test_kernel_limits_name_every_breach_of_config1():
     assert len(errors) == len(set(errors))
     training = kernel_limit_errors(ModelConfig(**CONFIG1), for_training=True)
     assert [e.split(":")[0] for e in training] == [
-        "the attention kernels take bfloat16 activations, got dtype float32"]
+        "the attention and GroupNorm kernels take bfloat16 activations, got dtype float32"]
     assert build.source_int("flash_attention_bwd_d8", "D") == 8
     assert not any(e.startswith("attention backward") for e in training)
 

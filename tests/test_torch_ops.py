@@ -230,7 +230,7 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing(rng):
     assert ops.launch_counts() == {"silu_conv3x3": 0, "gn_mul_add": 0, "silu_affine": 0,
                                    "attention": 0, "attention_bwd_prep": 0,
                                    "attention_bwd_main": 0, "attention_bwd_dq": 0,
-                                   "attention_bwd_d8": 0}
+                                   "attention_bwd_d8": 0, "group_norm_silu_bwd": 0}
 
 
 def test_wrappers_reject_other_devices():
